@@ -4,8 +4,10 @@
 
 Phases, one or more lines each on stdout:
   1. device   nvidia-smi name and power limit, torch and CUDA versions;
-  2. build    nvcc builds epitpu_torch/csrc/tauleap.cu (sm_90a); registers,
-              stack and spills of every kernel instantiation;
+  2. build    nvcc builds epitpu_torch/csrc/tauleap.cu (sm_90a) and, in
+              parallel, the generated functors' libraries of SIR, SEIR,
+              K = 2 T and K = 8 T (their KernelSpec removed), K = 12, K = 20
+              and SIRS; seconds, registers, stack and spills of each;
   3. kernel   every instantiation of the tau-leap kernel against its plain
               torch twin on the card, in both modes (the full trajectory
               with a theta row per lane; the final state with one theta row
@@ -78,17 +80,38 @@ Phases, one or more lines each on stdout:
               unsharded run in this process, bit for bit;
  14. cli-multihost  the runner with --multihost under a 1-process env
               triple, in a child process;
-and after phase 3 `kernel[lane-map]`: the kernel under a non-identity lane
-map against its twin, and a 2-shard filter step's lanes against the
-unsharded launch's.  Then a JSON line for the kernels, and as the last line
-{"ok": true, "device": {...}}.  Phases 5-14 are the main paths: the launch
-counts are set to 0 before each and read after it (in each child for
-13-14, summed over them).  The kernel library is built before any child
-starts; children only load it.  Every failed check
+ 15. user-models  the generated and plain routes end to end: SIRS
+              (tests/test_models.py:126-152) PMMH at the production preset's
+              shape (2,048 chains x 16, pooled adaptive h=0.6 from 16,
+              resample_every=4, theta only, 200 iterations) on its own
+              simulated data (T=15, population 4,820, binomial p=0.1) through
+              the generated functor and no hand one, posterior means held to
+              phase 7's bounds; `particle_mcmc` (one chain) equal to chain 0
+              of a one-chain batch and its 5-unit forecast; ABC on SIRS at
+              batch 512 and 65,536; 12-group SIR through the filter, logZ on
+              the card against the host; the competing-hazards model
+              (tests/test_torch_tauleap.py:193) through the filter on the
+              plain route, no kernel launch;
+and after phase 3 `kernel[generated ...]`: the generated SIR, SEIR, K = 2 T
+and K = 8 T functors equal to the hand ones bit for bit in both modes at the
+filter and ABC shapes, timed beside them; K = 12, K = 20 (40 reactions) and
+SIRS against their twin, timed, and at ragged lane counts;
+`advance[t_span]`: `advance` over 3 units on the card against the twin;
+`kernel[lane-map]`: the kernel under a non-identity lane map against its
+twin, and a 2-shard filter step's lanes against the unsharded launch's.
+Then a `routes:` line (hand, generated and plain launches per main path), a
+JSON line for the kernels, and as the last line {"ok": true, "device":
+{...}}.  Phases 5-15 are the main paths: the launch counts are set to 0
+before each and read after it (in each child for 13-14, summed over
+them).  The kernel libraries are built before any child
+starts; children only load them.  Every failed check
 raises and exits non-zero; without a CUDA device it raises before printing
 any result.
 """
+import concurrent.futures
 import contextlib
+import dataclasses
+import functools
 import io
 import json
 import math
@@ -111,11 +134,12 @@ from epitpu_torch.cli import main as cli_main
 from epitpu_torch.diag import ess_rank, gelman_rubin_rank
 from epitpu_torch.io import (dataset_from_csv, load_pmmh_checkpoint, load_pmmh_run,
                              pmmh_state_from_numpy)
-from epitpu_torch.mcmc import forecast_from_result, particle_mcmc_chains
-from epitpu_torch.models import seir_model, sir_model, sir_subgroups_model
+from epitpu_torch.mcmc import forecast_from_result, particle_mcmc, particle_mcmc_chains
+from epitpu_torch.models import make_model, seir_model, sir_model, sir_subgroups_model
 from epitpu_torch.observe import get_observation_model
-from epitpu_torch.ops import _build, tauleap_cuda
+from epitpu_torch.ops import _build, rate_trace, tauleap_cuda
 from epitpu_torch.rng import PhiloxStream
+from epitpu_torch.sim import advance, simulate
 from epitpu_torch.smc import particle_filter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -158,8 +182,17 @@ KERNEL_NAMES = {
     "sir": "traj_kernel<Sir>",
     "seir": "traj_kernel<Seir>",
     "sir_subgroups": "traj_kernel<SirSubgroups<K, transpose>>",
+    "generated": "traj_kernel<GeneratedModel>",
 }
-PATH_LAUNCHES = {}  # main path -> {family: launches}
+PATH_LAUNCHES = {}  # main path -> {family, "generated" or "plain": launches}
+# the user models' path (tests/test_models.py:126-152's SIRS) and the routes
+SIRS_TRUTH = (2.0, 1.0, 0.3)
+SIRD_TRUTH = (2.0, 0.8, 0.2)  # the competing-hazards model of tests/test_torch_tauleap.py:193
+USER_CHAINS, USER_ITERS = 2048, 200  # the production preset's shape, 200 iterations
+USER_ONE_ITERS = 200  # the one-chain run, then its 200-draw forecast
+USER_ABC_SAMPLES, USER_ABC_THRESHOLD = 100, 150.0
+K12_POP, K12_MU = 400.0, 3.0  # per group
+ADVANCE_SPAN = 3.0
 
 
 def check(cond, msg):
@@ -184,12 +217,24 @@ def cuda_ms(fn, reps=5, warmup=True):
     return float(np.median(times))
 
 
+PHASE_SECONDS = {}  # phase -> host seconds
+
+
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def on_main_path(name, families, fn, *args):
     """Run one main path with the launch counts set to 0 before it; fail if
     a kernel family it must use was never launched."""
     tauleap_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
     out = fn(*args)
     torch.cuda.synchronize()
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
     counts = dict(tauleap_cuda.FAMILY_LAUNCHES)
     for f in families:
         check(counts[f] > 0, f"main path {name} never launched the {f} kernel")
@@ -215,13 +260,16 @@ def _instantiation(mangled):
     m = re.search(r"SirSubgroupsILi(\d+)ELb([01])E", mangled)
     if m:
         return f"SirSubgroups<{m.group(1)},{'T' if m.group(2) == '1' else 'F'}>"
+    if "GeneratedModel" in mangled:
+        return "GeneratedModel"
     return "Seir" if "Seir" in mangled else "Sir"
 
 
-def phase_build():
-    path = _build.build()
+def _ptxas_report(ptxas):
+    """"name registers/stack/spill-store bytes" of every kernel nvcc's -v
+    reported."""
     rows, name = [], None
-    for ln in _build.BUILD_INFO.get("ptxas", "").splitlines():
+    for ln in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = _instantiation(m.group(1))
@@ -231,23 +279,112 @@ def phase_build():
         m = re.search(r"Used (\d+) registers", ln)
         if m and rows and rows[-1][1] is None:
             rows[-1][1] = int(m.group(1))
-    report = (", ".join(f"{n} {r}/{s}/{sp}" for n, r, s, sp in rows) if rows else
-              " | ".join(ln.strip() for ln in _build.BUILD_INFO.get("ptxas", "").splitlines()
-                         if "registers" in ln or "spill" in ln))
+    return (", ".join(f"{n} {r}/{s}/{sp}" for n, r, s, sp in rows) if rows else
+            " | ".join(ln.strip() for ln in ptxas.splitlines()
+                       if "registers" in ln or "spill" in ln))
+
+
+def phase_build():
+    """The hand library and the generated functors' libraries, all nvcc runs
+    at once."""
+    functors = {label: rate_trace.functor_source(m) for label, m in generated_models().items()}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(functors) + 1) as pool:
+        hand = pool.submit(_build.build)
+        gen = {label: pool.submit(_build.build_generated, f) for label, f in functors.items()}
+        path = hand.result()
+        gen = {label: f.result() for label, f in gen.items()}
+    wall = time.perf_counter() - t0
     print(f"build: {_build.BUILD_INFO['seconds']:.2f} s -> {os.path.relpath(path, ROOT)}; "
-          f"registers/stack bytes/spill-store bytes: {report}", flush=True)
+          f"registers/stack bytes/spill-store bytes: "
+          f"{_ptxas_report(_build.BUILD_INFO.get('ptxas', ''))}", flush=True)
+    parts = []
+    for label, p in gen.items():
+        info = _build.GENERATED_INFO[str(p)]
+        parts.append(f"{label} {info['seconds']:.2f} s {_ptxas_report(info['ptxas'])}")
+    print(f"build: generated functors (KernelSpec removed from the built-ins), {len(gen)} nvcc "
+          f"runs beside the hand library's, {wall:.2f} s wall: seconds and registers/stack "
+          f"bytes/spill-store bytes: {'; '.join(parts)}", flush=True)
+
+
+# ---- the user models: SIRS, and competing hazards ---------------------------
+
+def _sirs_rates(x, theta):
+    beta, gamma, omega = theta[..., 0], theta[..., 1], theta[..., 2]
+    s, i, r = x.unbind(-1)
+    n = s + i + r
+    return torch.stack([beta * s * i / torch.clamp(n, min=1.0), gamma * i, omega * r], dim=-1)
+
+
+def _sird_rates(x, theta):
+    n = x.sum(-1)
+    return torch.stack([theta[..., 0] * x[..., 0] * x[..., 1] / n,
+                        theta[..., 1] * x[..., 1], theta[..., 2] * x[..., 1]], -1)
+
+
+def _one_group_init(generator, shape, n_population=POP, mu=20.0, c_dim=3):
+    """I0 ~ Poisson(mu), S0 = N - I0, the other compartments 0."""
+    rate = torch.full(tuple(shape), float(mu), dtype=torch.float32, device=generator.device)
+    i0 = torch.poisson(rate, generator=generator)
+    z = [torch.zeros_like(i0)] * (c_dim - 2)
+    return torch.stack([float(n_population) - i0, i0, *z], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def sirs_model():
+    """tests/test_models.py:126-152's SIRS (waning immunity R -> S): a user
+    model with unique sources, so the generated route."""
+    return make_model("sirs", ("s", "i", "r"), [[-1, 1, 0], [0, -1, 1], [1, 0, -1]], [0, 1, 2],
+                      _sirs_rates, 3, ("beta", "gamma", "omega"), init_fn=_one_group_init,
+                      terminal_compartments=(1,))
+
+
+@functools.lru_cache(maxsize=None)
+def sird_model():
+    """I leaves by recovery or death, two reactions sharing source I: the
+    plain route."""
+    return make_model("sird", ("s", "i", "r", "d"), [[-1, 1, 0, 0], [0, -1, 1, 0], [0, -1, 0, 1]],
+                      [0, 1, 1], _sird_rates, 3, ("beta", "gamma", "delta"),
+                      init_fn=functools.partial(_one_group_init, c_dim=4),
+                      terminal_compartments=(1,))
+
+
+@functools.lru_cache(maxsize=None)
+def generated_models():
+    """label -> a model on the generated route: the built-ins with their
+    KernelSpec removed (their functors traced from their rate_fn), K = 12
+    and K = 20 subgroups, SIRS."""
+    plain = lambda m: dataclasses.replace(m, kernel=None)  # noqa: E731
+    models = {"sir": plain(sir_model()), "seir": plain(seir_model()),
+              "k=2 T": plain(sir_subgroups_model(2)), "k=8 T": plain(sir_subgroups_model(8)),
+              "k=12": sir_subgroups_model(12), "k=20": sir_subgroups_model(20),
+              "sirs": sirs_model()}
+    for label, m in models.items():
+        check(tauleap_cuda.route(m) == "generated", f"{label} is not on the generated route")
+    return models
+
+
+GENERATED_VS_HAND = {"sir": sir_model, "seir": seir_model,
+                     "k=2 T": lambda: sir_subgroups_model(2),
+                     "k=8 T": lambda: sir_subgroups_model(8)}
 
 
 # ---- phase 3: every kernel instantiation against its twin -----------------
 
+def _family(model):
+    """(lane-input family, groups): the built-in families by name, SIRS."""
+    if model.name.startswith("sir_subgroups"):
+        return "sir_subgroups", model.num_compartments // 3
+    return model.name, 1
+
+
 def _lane_inputs(model, b, gen):
     """Lanes across the epidemic, so both binomial regimes fire: per group a
-    population of 1,000-5,000 (SIR: 4,820), up to 30 % infected (SEIR: 20 %
-    exposed and 20 % infectious), a random removed share; theta spread
-    around the presets' truths."""
-    fam = model.kernel.family
-    groups = model.kernel.k if fam == "sir_subgroups" else 1
-    if fam == "sir":
+    population of 1,000-5,000 (SIR, SIRS: 4,820), up to 30 % infected (SEIR:
+    20 % exposed and 20 % infectious), a random removed share; theta spread
+    around the presets' truths (SIRS: around SIRS_TRUTH)."""
+    fam, groups = _family(model)
+    if fam in ("sir", "sirs"):
         pop = torch.full((b, 1), POP)
     else:
         pop = torch.randint(1000, 5001, (b, groups), generator=gen).float()
@@ -258,9 +395,11 @@ def _lane_inputs(model, b, gen):
         x0 = torch.stack([pop - e0 - i0 - r0, e0, i0, r0], -1)
         lo, hi = torch.tensor([3.0, 0.7, 0.7]), torch.tensor([5.0, 1.3, 1.3])
     else:
-        if fam == "sir":
+        if fam in ("sir", "sirs"):
             i0 = torch.randint(0, 1500, (b, 1), generator=gen).float()
             lo, hi = torch.tensor([1.5, 0.7]), torch.tensor([2.5, 1.3])
+            if fam == "sirs":
+                lo, hi = torch.tensor([1.5, 0.7, 0.1]), torch.tensor([2.5, 1.3, 0.5])
         else:
             i0 = torch.floor(0.3 * pop * torch.rand(b, groups, generator=gen))
             lo = torch.tensor([0.5] * groups ** 2 + [0.3])
@@ -312,9 +451,14 @@ OPS_NORMAL = 32  # normal regime: box_muller() 13 (2 uniforms, max, logf, multip
 
 def ops_rates(model):
     """Operations of one lane-substep's rates (the model's rate_fn, the
-    population sum once) and its 2 R state updates."""
+    population sum once) and its 2 R state updates; for a generated functor
+    the traced program's operations, each once however many reactions share
+    it (as the population sum above), and one per nonzero stoichiometry
+    entry."""
     spec = model.kernel
     r = model.num_reactions
+    if tauleap_cuda.route(model) == "generated":
+        return rate_trace.trace_rates(model).operations() + int(np.count_nonzero(model.stoich))
     if spec.family == "sir":
         rates = 6  # n: 2 adds; beta s i / n: 3; gamma i: 1
     elif spec.family == "seir":
@@ -350,7 +494,7 @@ def _per_theta(b):
     return max(d for d in range(1, 17) if b % d == 0)
 
 
-def _kernel_case(model, tag, b, t_max, gen, timed=True):
+def _kernel_case(model, tag, b, t_max, gen, timed=True, label=None):
     """The kernel against its twin in both modes: the full trajectory with a
     theta row per lane (ABC, the forecast, the app), and the final state with
     one theta row per ``_per_theta(b)`` lanes (the filter).  A timed case is
@@ -371,8 +515,9 @@ def _kernel_case(model, tag, b, t_max, gen, timed=True):
     same_final = float((kf1 == pf1).all(-1).float().mean())
     err1 = max(float((k1 - p1).abs().max()), float((kf1 - pf1).abs().max()))
     spec = model.kernel
-    label = (f"sir_subgroups k={spec.k} {'transposed' if spec.transpose else 'textbook'}"
-             if spec.family == "sir_subgroups" else model.name)
+    if label is None:
+        label = (f"sir_subgroups k={spec.k} {'transposed' if spec.transpose else 'textbook'}"
+                 if spec.family == "sir_subgroups" else model.name)
     check(same >= 0.999 and same_final >= 0.999,
           f"{label} {tag}: only {same:.5f} (full) / {same_final:.5f} (final) of lanes match "
           "the twin after one substep")
@@ -405,7 +550,8 @@ def _kernel_case(model, tag, b, t_max, gen, timed=True):
               f"{label} {tag} sds {ks.tolist()} vs {ps.tolist()}")
     full_same = float((k == p).all(-1).all(-1).float().mean())
     final_same = float((kf == pf).all(-1).float().mean())
-    row = dict(model=label, k=spec.k, transpose=spec.transpose, shape=tag, lanes=b,
+    row = dict(model=label, k=groups, transpose=None if spec is None else spec.transpose,
+               against="twin", shape=tag, lanes=b,
                t_max=t_max, lanes_per_theta=lpt, same_1sub=same, same_1sub_final=same_final,
                max_abs_err=err1, same_full=full_same, same_full_final=final_same, mode=None,
                ms=None, b2b_ms=None, plain_ms=None, bound_ms=None, bound_by=None,
@@ -486,6 +632,109 @@ def phase_kernel():
         for tag, b, t_max, timed in shapes:
             rows[model.kernel.family].append(_kernel_case(model, tag, b, t_max, gen, timed))
     return rows
+
+
+def _generated_vs_hand(label, gmodel, hmodel, gen):
+    """The generated functor of a built-in model against its hand-written
+    one, bit for bit in both modes (full trajectory, a theta row a lane;
+    final state, a theta row per 16 lanes) at the filter and ABC shapes,
+    each timed in its path's mode back to back beside the hand kernel."""
+    sim, twin = tauleap_cuda.simulate_lanes, tauleap_cuda.simulate_lanes_reference
+    rows = []
+    for tag, b, t_max in (("filter", FILTER_LANES, 1), ("abc", ABC_LANES, 14)):
+        x0, th, groups = _lane_inputs(hmodel, b, gen)
+        lpt = _per_theta(b)
+        th_chain = th[::lpt].contiguous()
+        seed, off = SEED + 100 + b, 3
+        full = (x0, th, seed, off, t_max, 20)
+        final = (x0, th_chain, seed, off, t_max, 20, True, lpt)
+        one_sub = [(x0, th, seed, off, 1, 1), (x0, th_chain, seed, off, 1, 1, True, lpt)]
+        pairs = [(sim(gmodel, *a), sim(hmodel, *a)) for a in one_sub + [full, final]]
+        torch.cuda.synchronize()
+        # fraction of lanes equal in every entry: 1-substep full, final; t_max full, final
+        same = [float((g == h).reshape(b, -1).all(-1).float().mean()) for g, h in pairs]
+        err1 = max(float((g - h).abs().max()) for g, h in pairs[:2])
+        check(min(same) == 1.0 and err1 == 0.0,
+              f"kernel[{label} generated {tag}]: the generated functor differs from the "
+              f"hand-written one (lanes equal after 1 substep full, final; after {t_max * 20} "
+              f"full, final: {same}; max |diff| after 1 substep {err1:g})")
+        final_mode = tag == "filter"
+        args = final if final_mode else full
+        # back to back in turns, hand, generated, generated, hand: the mean of each pair
+        b2b = {hmodel: [], gmodel: []}
+        for m in (hmodel, gmodel, gmodel, hmodel):
+            b2b[m].append(cuda_ms(lambda: [sim(m, *args) for _ in range(BACK_TO_BACK)])
+                          / BACK_TO_BACK)
+        hand_b2b, b2b_ms = float(np.mean(b2b[hmodel])), float(np.mean(b2b[gmodel]))
+        ms = cuda_ms(lambda: sim(gmodel, *args))
+        work = {}  # one twin run, counted and timed
+        plain_ms = cuda_ms(lambda: twin(gmodel, *args, work=work), reps=1, warmup=False)
+        bound_ms, by, ops, nbytes = bound(gmodel, b, t_max, b // lpt if final_mode else b,
+                                          final_mode, work)
+        substeps = t_max * 20
+        rows.append(dict(
+            model=f"{label} generated", k=groups, transpose=None, against="hand", shape=tag,
+            lanes=b, t_max=t_max, lanes_per_theta=lpt, same_1sub=same[0],
+            same_1sub_final=same[1], same_full=same[2], same_full_final=same[3],
+            max_abs_err=err1,
+            mode="final" if final_mode else "full", ms=ms, b2b_ms=b2b_ms, hand_b2b_ms=hand_b2b,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, bound_share=bound_ms / ms,
+            b2b_bound_share=bound_ms / b2b_ms, library_ms=None, ops=ops, bytes=nbytes,
+            draws=work["draws"], small_draws=work["small"], cdf_terms=work["terms"],
+            us_per_substep=1e3 * b2b_ms / substeps,
+            ns_per_lane_substep=1e6 * b2b_ms / (b * substeps), sm_clock=_sm_clock()))
+        print(f"kernel[generated {label} {tag}]: B={b} t_max={t_max} n_sub=20: generated == hand "
+              f"bit for bit in both modes (lanes equal {same[0]:.6f} full / {same[1]:.6f} final "
+              f"after 1 substep, max |diff| {err1:g}; {same[2]:.6f} / {same[3]:.6f} after "
+              f"{t_max * 20}); {rows[-1]['mode']} mode: generated {ms:.4f} ms one "
+              f"call, {b2b_ms:.4f} ms a launch of {BACK_TO_BACK} back to back against the hand "
+              f"functor's {hand_b2b:.4f} ms ({b2b_ms / hand_b2b:.2f}x; timed in turns), plain "
+              f"{plain_ms:.4f} ms; "
+              f"bound {bound_ms:.5f} ms by {by} ({ops / 1e6:.1f} M ops; {nbytes} bytes) = "
+              f"{100 * bound_ms / b2b_ms:.2f} % back to back; "
+              f"{rows[-1]['us_per_substep']:.3f} us per substep; SM clock "
+              f"{rows[-1]['sm_clock']}", flush=True)
+    return rows
+
+
+def phase_generated():
+    """The generated route: SIR, SEIR, K = 2 and K = 8 traced from their
+    rate_fn against their hand functors bit for bit; K = 12, K = 20 (40
+    reactions, past a warp) and SIRS against their twin after one substep in
+    both modes (>= 0.999 of lanes), timed at the filter and ABC shapes, and
+    at ragged lane counts."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    models = generated_models()
+    rows = []
+    for label, hand in GENERATED_VS_HAND.items():
+        rows += _generated_vs_hand(label, models[label], hand(), gen)
+    shapes = [("filter", FILTER_LANES, 1, True), ("abc", ABC_LANES, 14, True)]
+    shapes += [("ragged", n, 3, False) for n in RAGGED_LANES]
+    for label in ("k=12", "k=20", "sirs"):
+        for tag, b, t_max, timed in shapes:
+            rows.append(_kernel_case(models[label], tag, b, t_max, gen, timed,
+                                     label=f"{label} generated"))
+    return rows
+
+
+def phase_advance_span():
+    """``advance`` over ADVANCE_SPAN units (60 substeps of 0.05) on the card
+    against the twin at the filter shape."""
+    model = sir_model()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    x0, th, _ = _lane_inputs(model, FILTER_LANES, gen)
+    th = th[::16].contiguous()
+    card = advance(model, x0.reshape(-1, 16, 3), th[:, None, :], PhiloxStream(SEED + 95, DEV),
+                   t_span=ADVANCE_SPAN)
+    n_sub = int(round(ADVANCE_SPAN * 20))
+    twin = tauleap_cuda.simulate_lanes_reference(model, x0, th, SEED + 95, 0, 1, n_sub, True, 16,
+                                                 dt=ADVANCE_SPAN / n_sub)
+    same = float((card.reshape(-1, 3) == twin).all(-1).float().mean())
+    check(same >= 0.999, f"advance[t_span]: only {same:.5f} of lanes match the twin")
+    check(bool((card.sum(-1) == POP).all()), "advance[t_span] does not conserve")
+    print(f"advance[t_span={ADVANCE_SPAN}]: SIR {FILTER_LANES} lanes, {n_sub} substeps of "
+          f"{ADVANCE_SPAN / n_sub:g}, one launch: {same:.6f} of lanes identical to the twin",
+          flush=True)
 
 
 # ---- phase 4: the filter on the card against the host ----------------------
@@ -653,11 +902,12 @@ def _check_posterior_mean(name, model, thetas, truth):
     post = thetas[:, thetas.shape[1] // 5:].reshape(-1, truth.size)
     mean, sd = post.mean(0), post.std(0)
     lo, hi = truth.copy(), truth.copy()
-    if model.kernel.family == "sir_subgroups" and model.kernel.transpose:
+    spec = model.kernel
+    if spec is not None and spec.family == "sir_subgroups" and spec.transpose:
         # the data come from the untransposed ODE and the presets infer with
         # the transposed SSA (deliberate, as in the reference): beta[p, g] and
         # beta[g, p] trade places, so each is held to the interval of both
-        kk = model.kernel.k
+        kk = spec.k
         beta = truth[:kk * kk].reshape(kk, kk)
         lo[:kk * kk] = np.minimum(beta, beta.T).reshape(-1)
         hi[:kk * kk] = np.maximum(beta, beta.T).reshape(-1)
@@ -1044,6 +1294,149 @@ def phase_app():
           flush=True)
 
 
+# ---- the user models' path: the generated and plain routes ------------------
+
+def _twin_data(model, x0, theta, seed):
+    """15 daily states of one twin run from ``x0`` under ``theta`` and their
+    binomial observation at p = 0.1, seeded: (y [15, C], states [15, C])."""
+    lat = simulate(model, torch.tensor(x0, dtype=torch.float32),
+                   torch.tensor(theta, dtype=torch.float32), PhiloxStream(seed), 14, 20)
+    rng = np.random.default_rng(seed)
+    y = rng.binomial(lat.numpy().astype(np.int64), 0.1).astype(np.float32)
+    return torch.from_numpy(y), lat
+
+
+def _hand_launches():
+    return sum(tauleap_cuda.FAMILY_LAUNCHES[f] for f in tauleap_cuda.FAMILIES)
+
+
+def phase_user_pmmh(obs, y):
+    """SIRS PMMH at the production preset's shape: 2,048 chains x 16
+    particles, pooled adaptive h = 0.6 from iteration 16, resample_every=4,
+    theta only, USER_ITERS iterations, all through the generated functor."""
+    model = sirs_model()
+    kw = dict(seed=SEED + 91, device=DEV, n_chains=USER_CHAINS, n_iters=USER_ITERS,
+              obs_param=0.1, n_particles=16, n_population=POP, mu=20.0, adaptive=True,
+              adapt_start=16, pooled_adaptation=True, resample_every=4,
+              store_trajectories=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = particle_mcmc_chains(model, obs, y.to(DEV), list(SIRS_TRUTH), 0.6, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched, hand = tauleap_cuda.FAMILY_LAUNCHES["generated"], _hand_launches()
+    check(hand == 0 and tauleap_cuda.FAMILY_LAUNCHES["plain"] == 0,
+          f"user-models[pmmh]: {hand} hand launches, "
+          f"{tauleap_cuda.FAMILY_LAUNCHES['plain']} plain runs")
+    check(launched >= (USER_ITERS - 1) * (y.shape[0] - 1),
+          f"user-models[pmmh]: {launched} generated launches")
+    thetas = res.thetas.cpu().numpy()
+    lls = res.log_likelihoods.cpu()
+    check(thetas.shape == (USER_CHAINS, USER_ITERS, 3), f"user-models[pmmh] thetas {thetas.shape}")
+    # a chain whose init search found no finite candidate holds -inf until its
+    # first finite proposal, which it accepts (as in epitpu); none may stay there
+    check(bool(np.isfinite(thetas).all() and not torch.isnan(lls).any()
+               and torch.isfinite(lls[:, -1]).all()),
+          f"user-models[pmmh]: NaN rows, or {int((~torch.isfinite(lls[:, -1])).sum())} chains "
+          "ending at -inf")
+    minus_inf = int((~torch.isfinite(lls)).sum())
+    acc = float(res.acceptance_rate().mean())
+    check(0.02 < acc < 0.9, f"user-models[pmmh]: pooled acceptance {acc}")
+    mean, sd = _check_posterior_mean("user-models[pmmh] SIRS", model, thetas,
+                                     np.asarray(SIRS_TRUTH, np.float64))
+    print(f"user-models[pmmh]: SIRS (generated route) on its own simulated data (T=15, "
+          f"population {POP:g}, binomial p=0.1), {USER_CHAINS} chains x 16 particles x "
+          f"{USER_ITERS} iters, pooled adaptive h=0.6 from 16, resample_every=4, theta only, in "
+          f"{wall:.2f} s = {USER_CHAINS * USER_ITERS / wall:.1f} PMMH iters/s; acceptance "
+          f"{acc:.4f}; posterior mean {mean.round(4).tolist()} sd {sd.round(4).tolist()} (truth "
+          f"{list(SIRS_TRUTH)}); -inf log-likelihood rows {minus_inf} of {lls.numel()} (chains "
+          f"whose init search found no finite candidate, until their first accepted move); "
+          f"generated launches {launched}, hand launches {hand}", flush=True)
+
+
+def phase_user_one_chain(obs, y):
+    """``particle_mcmc`` (one chain) against chain 0 of a one-chain
+    ``particle_mcmc_chains`` run, bit for bit, then a 5-unit forecast from
+    its USER_ONE_ITERS stored rows."""
+    model = sirs_model()
+    kw = dict(n_iters=USER_ONE_ITERS, obs_param=0.1, n_particles=16, n_population=POP, mu=20.0,
+              n_init_attempts=4, resample_every=4, device=DEV)
+    one = particle_mcmc(model, obs, SEED + 92, y.to(DEV), list(SIRS_TRUTH), 0.05, **kw)
+    batch = particle_mcmc_chains(model, obs, y.to(DEV), list(SIRS_TRUTH), 0.05, seed=SEED + 92,
+                                 n_chains=1, **kw)
+    for field in ("thetas", "log_likelihoods", "sampled_trajs"):
+        check(torch.equal(getattr(one, field), getattr(batch, field)[0]),
+              f"particle_mcmc's {field} differ from chain 0 of particle_mcmc_chains")
+    before = tauleap_cuda.FAMILY_LAUNCHES["generated"]
+    fc = forecast_from_result(model, PhiloxStream(SEED + 93, DEV), one, 5)
+    torch.cuda.synchronize()
+    check(tauleap_cuda.FAMILY_LAUNCHES["generated"] == before + 1,
+          "the SIRS forecast is not one generated launch")
+    check(tuple(fc.shape) == (USER_ONE_ITERS, 6, 3), f"SIRS forecast shape {tuple(fc.shape)}")
+    check(bool((fc == torch.round(fc)).all() and (fc >= 0).all() and (fc.sum(-1) == POP).all()),
+          "SIRS forecast not non-negative conserving counts")
+    print(f"user-models[one-chain]: particle_mcmc x {USER_ONE_ITERS} rows == chain 0 of "
+          f"particle_mcmc_chains bit for bit (thetas, log-likelihoods, paths; acceptance "
+          f"{float(one.acceptance_rate()):.4f}); 5-unit forecast {tuple(fc.shape)} in one "
+          f"generated launch, integer, conserving", flush=True)
+
+
+def phase_user_abc(lat):
+    """ABC rejection on SIRS at batch 512 and 65,536: one generated launch a
+    batch; every accepted trajectory within the threshold of the data."""
+    model = sirs_model()
+    priors = {"beta": (0.0, 5.0), "gamma": (0.0, 5.0), "omega": (0.0, 1.0)}
+    obs_np = lat.numpy()
+    for batch in (ABC_LANES, ABC_BIG_BATCH):
+        before = tauleap_cuda.FAMILY_LAUNCHES["generated"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = abc_rejection(model, SEED + 94 + batch, lat.to(DEV), USER_ABC_SAMPLES,
+                            USER_ABC_THRESHOLD, priors, batch_size=batch)
+        wall = time.perf_counter() - t0
+        launched = tauleap_cuda.FAMILY_LAUNCHES["generated"] - before
+        check(res.backend == DEV.type, f"SIRS abc ran on {res.backend}")
+        check(launched == res.trials // batch, f"SIRS abc: {launched} launches, {res.trials} trials")
+        tr = res.trajectories
+        check(tr.shape == (USER_ABC_SAMPLES, 15, 3), f"SIRS abc trajectories {tr.shape}")
+        check(bool((tr == np.round(tr)).all() and (tr >= 0).all()
+                   and (tr.sum(-1) == tr[:, :1].sum(-1)).all()),
+              "SIRS abc trajectories not non-negative conserving counts")
+        dist = 0.5 * (np.abs(tr[..., 1] - obs_np[:, 1]).mean(1)
+                      + np.abs(tr[..., 2] - obs_np[:, 2]).mean(1))
+        check(bool((dist <= USER_ABC_THRESHOLD * (1 + 1e-6)).all()),
+              f"SIRS abc accepted a distance of {float(dist.max()):.2f}")
+        means = [round(float(res.posterior[n].mean()), 4) for n in model.theta_names]
+        print(f"user-models[abc batch {batch}]: SIRS, {USER_ABC_SAMPLES} samples, threshold "
+              f"{USER_ABC_THRESHOLD:g}: trials {res.trials}, acceptance "
+              f"{res.acceptance_rate:.5f}, {USER_ABC_SAMPLES / wall:.1f} samples/s; posterior "
+              f"mean {means} (truth {list(SIRS_TRUTH)}); generated launches {launched}",
+              flush=True)
+
+
+def phase_user_k12(obs):
+    """12-group SIR (past MAX_GROUPS, the generated route) through the
+    filter: logZ on the card against the host."""
+    model = sir_subgroups_model(12)
+    beta = np.full((12, 12), 1.0) + 19.0 * np.eye(12)  # force over N_total: R0 about 2.6
+    theta = beta.reshape(-1).tolist() + [1.0]
+    x0 = [K12_POP - K12_MU, K12_MU, 0.0] * 12
+    y, _ = _twin_data(model, x0, theta, SEED + 96)
+    _filter_logz("sir_subgroups k=12 generated", model, obs, y, theta, [K12_POP] * 12,
+                 [K12_MU] * 12)
+
+
+def phase_user_competing(obs):
+    """The competing-hazards model (I -> R and I -> D) through the filter on
+    the plain route: logZ on the card against the host, no kernel launch."""
+    model = sird_model()
+    check(tauleap_cuda.route(model) == "plain", "the competing-hazards model is not plain")
+    y, _ = _twin_data(model, [POP - 20.0, 20.0, 0.0, 0.0], SIRD_TRUTH, SEED + 97)
+    _filter_logz("sird competing hazards, plain route", model, obs, y, SIRD_TRUTH, POP, 20.0)
+    check(tauleap_cuda.launches() == 0,
+          f"the plain route launched a kernel {tauleap_cuda.launches()} times")
+
+
 # ---- the sharded runs and the exact SSA --------------------------------------
 
 def phase_lane_map():
@@ -1204,7 +1597,7 @@ def _arrays(arr):
 def on_child_path(name, families, reports):
     """The launch counts of a path run in child processes, summed over
     them; every child must have launched each family."""
-    counts = dict.fromkeys(tauleap_cuda.FAMILIES, 0)
+    counts = dict.fromkeys(tauleap_cuda.FAMILY_LAUNCHES, 0)
     for r, rep in enumerate(reports):
         for f in families:
             check(rep["launches"][f] > 0, f"{name}: rank {r} never launched the {f} kernel")
@@ -1433,29 +1826,37 @@ def child_main(phase, rank, world, d):
         dist.destroy_process_group()
 
 
-IDENTITY_KEYS = ("model", "k", "transpose", "shape", "lanes", "t_max", "lanes_per_theta",
-                 "same_1sub", "same_1sub_final", "same_full", "same_full_final", "max_abs_err")
+IDENTITY_KEYS = ("model", "k", "transpose", "against", "shape", "lanes", "t_max",
+                 "lanes_per_theta", "same_1sub", "same_1sub_final", "same_full",
+                 "same_full_final", "max_abs_err")
 TIMING_KEYS = ("mode", "ms", "b2b_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
                "b2b_bound_share", "library_ms", "ops", "bytes", "draws", "small_draws",
                "cdf_terms", "us_per_substep", "ns_per_lane_substep", "sm_clock")
 
 
+HEADLINE = {"generated": "sirs generated"}  # the user model's cases head its entry
+
+
 def kernel_entries(rows):
-    """One entry per kernel family: its filter-shape case (the production
-    path's launch) as the headline, its ABC case beside it, and every case
-    it was held to its twin at."""
+    """One entry per kernel family and one for the generated functors: the
+    filter-shape case (the production path's launch; SIRS for the generated
+    route) as the headline, its ABC case beside it, and every case it was
+    held to its twin (or hand functor) at."""
     entries = []
-    for fam in tauleap_cuda.FAMILIES:
+    for fam in tauleap_cuda.KERNEL_PATHS:
         cases = rows[fam]
-        main = next(c for c in cases if c["shape"] == "filter")
-        abc = next(c for c in cases if c["shape"] == "abc")
+        head = [c for c in cases if c["model"] == HEADLINE.get(fam, c["model"])]
+        main = next(c for c in head if c["shape"] == "filter")
+        abc = next(c for c in head if c["shape"] == "abc")
         entries.append({
             "name": KERNEL_NAMES[fam],
             "route": "cuda",
-            "source": "epitpu_torch/csrc/tauleap.cu",
+            "kernel_route": "generated" if fam == "generated" else "hand",
+            "source": ("epitpu_torch/csrc/tauleap_kernel.cuh" if fam == "generated" else
+                       "epitpu_torch/csrc/tauleap.cu"),
             "replaces": "epitpu/ops/tauleap_pallas.py:207",
-            "launches": sum(p[fam] for p in PATH_LAUNCHES.values()),
-            "launches_by_path": {n: p[fam] for n, p in PATH_LAUNCHES.items() if p[fam]},
+            "launches": sum(p.get(fam, 0) for p in PATH_LAUNCHES.values()),
+            "launches_by_path": {n: p[fam] for n, p in PATH_LAUNCHES.items() if p.get(fam)},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -1470,7 +1871,8 @@ def kernel_entries(rows):
             "abc_bound_ms": abc["bound_ms"],
             "abc_bound_share": abc["bound_share"],
             "instantiations": [
-                {key: c[key] for key in IDENTITY_KEYS + (TIMING_KEYS if c["ms"] else ())}
+                {key: c[key] for key in IDENTITY_KEYS + (TIMING_KEYS if c["ms"] else ())
+                 + (("hand_b2b_ms",) if "hand_b2b_ms" in c else ())}
                 for c in cases
             ],
         })
@@ -1480,13 +1882,15 @@ def kernel_entries(rows):
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()  # before any child process: children only load the library
-    rows = phase_kernel()
-    phase_lane_map()
+    timed("build", phase_build)  # before any child process: children only load the libraries
+    rows = timed("kernel", phase_kernel)
+    rows["generated"] = timed("kernel[generated]", phase_generated)
+    timed("advance[t_span]", phase_advance_span)
+    timed("kernel[lane-map]", phase_lane_map)
     model = sir_model()
     obs = get_observation_model("binomial")
     y = dataset_from_csv(os.path.join(DATA, "dataset.csv"), DEV)
-    phase_filter(obs, y)
+    timed("filter", phase_filter, obs, y)
     prod = on_main_path("pmmh", ["sir"], phase_pmmh, model, obs, y)
     on_main_path("forecast", ["sir"], phase_forecast, model, obs, y)
     for k, name in enumerate(MODEL_PRESETS):
@@ -1503,12 +1907,24 @@ def main():
     on_main_path("cli-sweep", ["sir"], phase_cli_sweep)
     on_main_path("app", ["sir"], phase_app)
     on_main_path("exact", ["sir", "sir_subgroups"], phase_exact)
-    phase_dist_chains(model, obs, y)
-    phase_dist_particles(model, obs, y)
-    phase_dist_nccl(model, obs, y)
-    phase_cli_multihost()
+    y_sirs, lat_sirs = _twin_data(sirs_model(), [POP - 20.0, 20.0, 0.0], SIRS_TRUTH, SEED + 90)
+    on_main_path("user-models[pmmh]", ["generated"], phase_user_pmmh, obs, y_sirs)
+    on_main_path("user-models[one-chain]", ["generated"], phase_user_one_chain, obs, y_sirs)
+    on_main_path("user-models[abc]", ["generated"], phase_user_abc, lat_sirs)
+    on_main_path("user-models[k=12 filter]", ["generated"], phase_user_k12, obs)
+    on_main_path("user-models[competing]", ["plain"], phase_user_competing, obs)
+    timed("dist-chains", phase_dist_chains, model, obs, y)
+    timed("dist-particles", phase_dist_particles, model, obs, y)
+    timed("dist-nccl", phase_dist_nccl, model, obs, y)
+    timed("cli-multihost", phase_cli_multihost)
+    routes = {name: {"hand": sum(p.get(f, 0) for f in tauleap_cuda.FAMILIES),
+                     "generated": p.get("generated", 0), "plain": p.get("plain", 0)}
+              for name, p in PATH_LAUNCHES.items()}
+    print(f"routes: launches (plain: calls of the twin on the card) per main path: "
+          f"{json.dumps(routes)}", flush=True)
+    print(f"phase seconds (host clock): {json.dumps(PHASE_SECONDS)}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s on {smi}", flush=True)
-    print(json.dumps({"kernels": kernel_entries(rows)}), flush=True)
+    print(json.dumps({"kernels": kernel_entries(rows), "routes": routes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@ counterpart of ``epitpu.abc.rejection``).
 Each batch draws uniform-prior thetas and Poisson-jittered initial states
 around ``observed[0]`` on the device, runs every candidate through the
 tau-leap kernel in one ``simulate_lanes`` launch (daily states recorded
-directly), and computes the distance on the device.  The host loop:
+directly; a model whose reactions share a source takes the plain twin on
+the card, ``tauleap_cuda.route``), and computes the distance on the
+device.  The host loop:
 
   * syncs only the ``[K]`` accept mask per batch; trajectories and thetas
     stay on the device and are fetched only for accepted candidates;
@@ -25,11 +27,13 @@ import torch
 
 from ..device import resolve_device
 from ..models.base import CompartmentModel
-from ..ops.tauleap_cuda import simulate_lanes
+from ..ops.tauleap_cuda import route, simulate_lanes
 from ..rng import derive_seed
 
-# "auto" and "pallas" both name the per-lane kernel (on CUDA) or its twin
-# (on the CPU); the JAX package's "xla" scan has no counterpart here
+# "auto" and "pallas" both name simulate_lanes: on CUDA the kernel, or the
+# plain twin on the card for a model whose reactions share a source (the
+# counterpart of the JAX package's "xla" scan, chosen by the model), and the
+# twin on the CPU
 BACKENDS = ("auto", "pallas")
 
 
@@ -46,7 +50,10 @@ def reference_sir_distance(sim_traj, observed):
 class ABCResult:
     """posterior: dict name -> [n_samples] accepted draws; trajectories:
     [n_samples, T, C] accepted simulated trajectories; trials: candidate
-    count; backend: "cuda" (the kernel) or "cpu" (its plain twin)."""
+    count; backend: the path that simulated, "cuda" (the kernel, on a
+    hand-written or generated functor), "cuda-plain" (the plain twin on the
+    card, the declared route of a model whose reactions share a source) or
+    "cpu" (the twin)."""
 
     posterior: Dict[str, np.ndarray]
     trajectories: np.ndarray
@@ -136,5 +143,8 @@ def abc_rejection(
     thetas = np.concatenate(acc_thetas)[:n_samples]
     trajs = np.concatenate(acc_trajs)[:n_samples]
     posterior = {n: thetas[:, j] for j, n in enumerate(names)}
+    backend = device.type
+    if backend == "cuda" and route(model) == "plain":
+        backend = "cuda-plain"
     return ABCResult(posterior=posterior, trajectories=trajs, trials=trials,
-                     backend=device.type)
+                     backend=backend)

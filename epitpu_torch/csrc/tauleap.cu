@@ -1,16 +1,7 @@
-// Per-lane Euler-multinomial tau-leap simulation of the built-in compartment
-// models, for Hopper.
-//
-// Replaces the Pallas TPU kernel epitpu/ops/tauleap_pallas.py:_make_traj_kernel,
-// launched by _pallas_simulate_impl.  It computes what that kernel computes:
-// B independent (theta, x0) lanes, each run through t_max * n_sub substeps,
-// the state recorded at every integer time into out[B, t_max+1, C] (or, with
-// final_only, only the state at t_max into out[B, C]).  Reaction r fires
-// Binomial(x_src, 1 - exp(-mu_r dt)) by the two-regime law of
-// epitpu/sim/samplers.py:66-88: exact inverse CDF over 20 terms below mean 8,
-// Cornish-Fisher normal above, p > 1/2 flipped.  The TPU kernel reads the
-// model's rate function and stoichiometry at trace time; here each model
-// family is a functor the kernel is instantiated on:
+// The hand-written model functors of the tau-leap kernel
+// (csrc/tauleap_kernel.cuh, which says what the kernel computes, what bounds
+// it and how its design answers that), and the C entry epi_traj that
+// launches it for a built-in model family:
 //
 //   Sir                   3 compartments, 2 reactions, theta [beta, gamma]
 //   Seir                  4 compartments, 3 reactions, theta [beta, alpha, gamma]
@@ -21,179 +12,33 @@
 //                         sum_p beta[g, p] i_p.  K = 1 .. kMaxGroups.
 //
 // Every reaction of these families moves one unit from x[src(r)] to
-// x[src(r) + 1], and no two reactions share a source, so draw slot r serves
-// reaction r.  Each functor's rate() follows the operation order of the
+// x[src(r) + 1].  Each functor's rate() follows the operation order of the
 // model's torch rate_fn (epitpu_torch/models/), the force as a left-to-right
-// sum over p, so the plain twin
-// (epitpu_torch/ops/tauleap_cuda.py:simulate_lanes_reference) rounds alike.
-// Within a substep every reaction draws from the pre-substep state before any
-// update, and the updates are applied in reaction order, as the twin's
-// sim/tauleap.py:substep does.  Randomness is Philox4x32-10 with key = seed
-// and counter = (lane, call offset, substep, reaction), the layout of
-// epitpu_torch/rng.py, so the twin draws the same bits: word 0 is the
-// uniform, words 1 and 2 the Box-Muller normal.  The counter's lane word goes
-// through a lane map (chain offset c0, local and total particles per chain
-// n_local and n_total, particle offset p0): lane b draws as lane
-// (c0 + b / n_local) * n_total + p0 + b % n_local, its index in the unsharded
-// launch, so a shard of a chain- or particle-sharded filter step
-// (epitpu_torch/dist) draws what the same particle draws unsharded.  The
-// identity map is (0, 1, 1, 0).
-//
-// What bounds it: not bytes (a lane reads C + d words and writes at most
-// C (t_max+1)) but one long dependent chain per lane: t_max * n_sub substeps,
-// each a rate, a fire probability and a binomial draw whose inverse-CDF loop
-// runs one IEEE division per term.  At the ABC and forecast shapes there are
-// too few lanes to hide that chain behind other warps, so the design shortens
-// the chain itself:
-//
-//  (a) A lane is served by a group of G threads, G = the next power of two
-//      >= R (SIR 2, SEIR 4 with one idle, K groups: 2, 4, 8, 8, 16 x4).
-//      Every thread holds the lane's whole state; thread r computes only
-//      reaction r's rate (with only the theta entries it reads: row or column
-//      r of beta, or gamma) and only draw r.  The R counts are exchanged with
-//      __shfl_sync inside the group and every thread applies all R updates in
-//      reaction order, so the copies of the state stay identical.  This
-//      divides the draw part of the chain by R, and no thread keeps a per-
-//      reaction array any more (the K >= 3 local-memory loop is gone).
-//  (b) The CDF loop stops at the first term with u < cdf.  This is exact:
-//      cdf is a running sum of terms clamped at >= 0, so it never decreases
-//      and every later (u >= cdf) is false (a NaN cdf stays NaN and compares
-//      false as well; the loop tests !(u >= cdf) so that case exits too).
-//  (c) Box-Muller (logf, sqrtf, cosf) runs only in the normal regime.
-//  (d) Philox is computed inside the draw that consumes it.  Computing the
-//      words of substep j + 1 at the top of substep j did not take them off
-//      the chain: nvcc placed the ten rounds at the loop top, ahead of the
-//      drawing threads' branch (cuobjdump -sass), where they ran in series,
-//      and that build timed 5 % slower at the ABC shape than this one
-//      (k4_ablation.py at the repo's root, on an H100).  A producer warp
-//      filling a shared-memory ring with (u, z) pairs was not built: its
-//      ceiling, timed by the same script, is what a free Philox and a free
-//      Box-Muller would save, 4-8 % each, before an mbarrier wait on every
-//      substep of a chain whose length is the limit.
-//  (e) The launch shape comes from the caller
-//      (epitpu_torch/ops/tauleap_cuda.py:launch_geometry): fewer threads per
-//      block when a launch would fill fewer blocks than the card has SMs.
-//      Threads of a group past the last lane, and padding threads of a group
-//      (r >= R), run every loop and every shuffle with their group's mask,
-//      but never draw and never write.
-//  (f) final_only writes only the state at t_max into [B, C] (the particle
-//      filter's step), and lanes_per_theta lets consecutive lanes share one
-//      theta row (lane b reads row b / lanes_per_theta), so the filter
-//      launches nothing but this kernel.
-//
-// Tensor cores have no matrix product to run here, and TMA no tile worth
-// copying: a launch reads tens of bytes a lane.
-//
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (see
-// epitpu_torch/ops/_build.py); no fast-math, so expf/logf/expm1f/log1pf and
-// the divisions round like the torch twin's.
+// sum over p.  Any other model with unique reaction sources, and K-group SIR
+// past kMaxGroups, runs on a functor generated from its rate_fn
+// (epitpu_torch/ops/rate_trace.py, built by epitpu_torch/ops/_build.py).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tauleap_kernel.cuh"
 
 namespace {
 
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
-constexpr int kSmallK = 20;
-constexpr float kSmallMeanMax = 8.0f;
-constexpr int kMaxThreads = 256;  // per block; tauleap_cuda.py:MAX_THREADS
-constexpr int kMaxGroups = 8;     // epitpu_torch/ops/tauleap_cuda.py:MAX_GROUPS
+constexpr int kMaxGroups = 8;  // epitpu_torch/ops/tauleap_cuda.py:MAX_GROUPS
 
-struct Words {
-  uint32_t x, y, z, w;
-};
-
-__host__ __device__ constexpr int group_size(int reactions) {
-  int g = 1;
-  while (g < reactions) g *= 2;
-  return g;
-}
-
-__device__ __forceinline__ Words philox(Words c, uint32_t k0, uint32_t k1) {
+// apply() of the hand functors: reaction q moves e[q] from x[src(q)] to the
+// next compartment
+template <class M>
+__device__ __forceinline__ void move_to_next(float (&x)[M::kC], const float (&e)[M::kR]) {
 #pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
-    const uint32_t lo0 = kPhiloxM0 * c.x;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
-    const uint32_t lo1 = kPhiloxM1 * c.z;
-    c = Words{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
-    k0 += kPhiloxW0;
-    k1 += kPhiloxW1;
+  for (int q = 0; q < M::kR; ++q) {
+    x[M::src(q)] = x[M::src(q)] - e[q];
+    x[M::src(q) + 1] = x[M::src(q) + 1] + e[q];
   }
-  return c;
-}
-
-__device__ __forceinline__ float uniform(uint32_t bits) {
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-}
-
-__device__ __forceinline__ float box_muller(uint32_t b1, uint32_t b2) {
-  const float u1 = fmaxf(uniform(b1), 1e-12f);
-  const float u2 = uniform(b2);
-  const float r = sqrtf(-2.0f * logf(u1));
-  return r * cosf(6.2831855f * u2);
-}
-
-// Binomial(n, p) from the Philox words of its counter; the operations and
-// their order follow epitpu_torch/sim/samplers.py:binomial_from_draws.
-__device__ __forceinline__ float binomial(const Words& w, float n, float p) {
-  p = fminf(fmaxf(p, 0.0f), 1.0f);
-  const bool flip = p > 0.5f;
-  const float pe = flip ? 1.0f - p : p;
-  const float lam = n * pe;
-  float x;
-  if (lam < kSmallMeanMax) {
-    const float u = uniform(w.x);
-    const float ps = fminf(pe, 0.9999999f);
-    const float q = 1.0f - ps;
-    const float ratio = ps / q;
-    float pmf = expf(n * log1pf(-ps));
-    float cdf = pmf;
-    x = 0.0f;
-    for (int k = 0; k < kSmallK - 1; ++k) {
-      if (!(u >= cdf)) break;  // (b): no later term can count
-      x += 1.0f;
-      pmf = fmaxf(pmf * (n - (float)k) / ((float)k + 1.0f) * ratio, 0.0f);
-      cdf = cdf + pmf;
-    }
-    x += (u >= cdf) ? 1.0f : 0.0f;
-    x = fminf(x, n);
-  } else {
-    const float z = box_muller(w.y, w.z);  // (c)
-    const float var = lam * (1.0f - pe);
-    const float sig = sqrtf(fmaxf(var, 1e-12f));
-    const float gamma = (1.0f - 2.0f * pe) / sig;
-    const float zc = z + gamma * (z * z - 1.0f) / 6.0f;
-    x = floorf(lam + sig * zc + 0.5f);
-    x = fminf(fmaxf(x, 0.0f), n);
-  }
-  if (flip) x = n - x;
-  if (p == 0.0f) x = 0.0f;
-  if (p == 1.0f) x = n;
-  return x;
-}
-
-__device__ __forceinline__ float fire_probability(float rate, float src, float dt) {
-  const float mu = src > 0.0f ? fmaxf(rate, 0.0f) / fmaxf(src, 1.0f) : 0.0f;
-  return fminf(fmaxf(-expm1f(-mu * dt), 0.0f), 1.0f);
-}
-
-// x[i] for a runtime i, by selects over the unrolled compartments, so the
-// state never leaves registers.
-template <int C>
-__device__ __forceinline__ float pick(const float (&x)[C], int i) {
-  float v = x[0];
-#pragma unroll
-  for (int c = 1; c < C; ++c) v = (i == c) ? x[c] : v;
-  return v;
 }
 
 // ---- model functors (epitpu_torch/models/{sir,seir,subgroups}.py) ----------
 // load(th, r, coef): the theta entries reaction r reads; rate(x, coef, r):
-// reaction r's rate, in the operation order of the model's rate_fn.
+// reaction r's rate, in the operation order of the model's rate_fn;
+// apply(x, e): the state change of the event counts.
 
 struct Sir {
   static constexpr int kC = 3, kR = 2, kCoef = 1;
@@ -207,6 +52,9 @@ struct Sir {
       return coef[0] * x[0] * x[1] / n;
     }
     return coef[0] * x[1];
+  }
+  __device__ __forceinline__ static void apply(float (&x)[kC], const float (&e)[kR]) {
+    move_to_next<Sir>(x, e);
   }
 };
 
@@ -222,6 +70,9 @@ struct Seir {
       return coef[0] * x[0] * x[2] / n;
     }
     return coef[0] * pick(x, r);  // alpha e, gamma i
+  }
+  __device__ __forceinline__ static void apply(float (&x)[kC], const float (&e)[kR]) {
+    move_to_next<Seir>(x, e);
   }
 };
 
@@ -250,105 +101,10 @@ struct SirSubgroups {
     }
     return coef[0] * pick(x, 3 * (r - K) + 1);
   }
+  __device__ __forceinline__ static void apply(float (&x)[kC], const float (&e)[kR]) {
+    move_to_next<SirSubgroups>(x, e);
+  }
 };
-
-// Thread r of a lane's group writes the compartments c with c % G == r.
-template <int C, int G>
-__device__ __forceinline__ void store(float* o, const float (&x)[C], int r) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (c % G == r) o[c] = x[c];
-  }
-}
-
-template <class M>
-__global__ void __launch_bounds__(kMaxThreads)
-traj_kernel(const float* __restrict__ x0, const float* __restrict__ theta,
-            float* __restrict__ out, int lanes, int theta_stride, int lanes_per_theta,
-            uint32_t k0, uint32_t k1, uint32_t offset, uint32_t lane_c0, uint32_t lane_n_local,
-            uint32_t lane_n_total, uint32_t lane_p0, int t_max, int n_sub, float dt,
-            int final_only) {
-  constexpr int C = M::kC, R = M::kR, G = group_size(R);
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = static_cast<int>(tid / G);
-  const int r = static_cast<int>(tid % G);
-  const bool live = b < lanes;
-  const bool drawer = live && r < R;
-  // the counter's lane word: b's index in the unsharded launch
-  const uint32_t lane = (lane_c0 + (uint32_t)b / lane_n_local) * lane_n_total + lane_p0 +
-                        (uint32_t)b % lane_n_local;
-  // the group's lanes of the warp; a block is whole warps, so no group spans two
-  const unsigned mask = ((1u << G) - 1u) << (threadIdx.x & 31u & ~(unsigned)(G - 1));
-  float x[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) x[c] = live ? x0[(size_t)C * b + c] : 0.0f;
-  float coef[M::kCoef];
-#pragma unroll
-  for (int p = 0; p < M::kCoef; ++p) coef[p] = 0.0f;
-  if (drawer) M::load(theta + (size_t)(b / lanes_per_theta) * theta_stride, r, coef);
-  const int src = M::src(r < R ? r : 0);
-  float* o = out + (size_t)b * (final_only ? 1 : t_max + 1) * C;
-  if (live && (!final_only || t_max == 0)) store<C, G>(o, x, r);
-  uint32_t step = 0;
-  for (int t = 1; t <= t_max; ++t) {
-    for (int j = 0; j < n_sub; ++j, ++step) {
-      float ev = 0.0f;
-      if (drawer) {
-        const float n = pick(x, src);
-        const Words w = philox(Words{lane, offset, step, (uint32_t)r}, k0, k1);
-        ev = binomial(w, n, fire_probability(M::rate(x, coef, r), n, dt));
-      }
-      float e[R];
-#pragma unroll
-      for (int q = 0; q < R; ++q) e[q] = __shfl_sync(mask, ev, q, G);
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        x[M::src(q)] = x[M::src(q)] - e[q];
-        x[M::src(q) + 1] = x[M::src(q) + 1] + e[q];
-      }
-    }
-    if (live && (!final_only || t == t_max)) store<C, G>(o + (final_only ? 0 : C * t), x, r);
-  }
-}
-
-struct Launch {
-  const float* x0;
-  const float* theta;
-  float* out;
-  int lanes, theta_stride, lanes_per_theta;
-  uint32_t k0, k1, offset;
-  uint32_t lane_c0, lane_n_local, lane_n_total, lane_p0;
-  int t_max, n_sub;
-  float dt;
-  int final_only, group, threads, blocks;
-  cudaStream_t stream;
-};
-
-template <class M>
-int launch(const Launch& l) {
-  constexpr int G = group_size(M::kR);
-  const long long need = (long long)l.lanes * G;
-  // the shape must be the one launch_geometry computes for this instantiation
-  if (l.group != G || l.threads < 32 || l.threads > kMaxThreads || l.threads % 32 != 0 ||
-      l.blocks < 1 || (long long)l.blocks * l.threads < need ||
-      (long long)(l.blocks - 1) * l.threads >= need || l.lanes_per_theta < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // the lane map must cover the launch with whole chains, and every lane word
-  // it gives must fit the counter's 32 bits
-  const long long n_local = l.lane_n_local, n_total = l.lane_n_total;
-  if (n_local < 1 || n_total < n_local || (long long)l.lane_p0 + n_local > n_total ||
-      l.lanes % n_local != 0 ||
-      ((long long)l.lane_c0 + l.lanes / n_local - 1) * n_total + l.lane_p0 + n_local - 1 >
-          0xFFFFFFFFLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  traj_kernel<M><<<l.blocks, l.threads, 0, l.stream>>>(
-      l.x0, l.theta, l.out, l.lanes, l.theta_stride, l.lanes_per_theta, l.k0, l.k1,
-      l.offset, l.lane_c0, l.lane_n_local, l.lane_n_total, l.lane_p0, l.t_max, l.n_sub, l.dt,
-      l.final_only);
-  return static_cast<int>(cudaGetLastError());
-}
 
 template <int K>
 int launch_subgroups(int k, bool transpose, const Launch& l) {

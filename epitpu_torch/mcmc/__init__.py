@@ -1,6 +1,7 @@
 from .adaptive import Welford
 from .forecast import forecast_from_result, posterior_forecast
-from .pmmh import PMMHResult, PMMHState, default_telemetry, particle_mcmc_chains
+from .pmmh import (PMMHResult, PMMHState, default_telemetry, particle_mcmc,
+                   particle_mcmc_chains, particle_mcmc_jit)
 
 __all__ = [
     "PMMHResult",
@@ -8,6 +9,8 @@ __all__ = [
     "Welford",
     "default_telemetry",
     "forecast_from_result",
+    "particle_mcmc",
     "particle_mcmc_chains",
+    "particle_mcmc_jit",
     "posterior_forecast",
 ]

@@ -81,7 +81,8 @@ class PMMHState:
 class PMMHResult:
     """thetas ``[chains, rows, d]``; log_likelihoods ``[chains, rows]``;
     sampled_trajs ``[chains, rows, T, C]`` (``[chains, rows, 0, 0]`` for a
-    theta-only run); acceptances ``[chains]``; final_state."""
+    theta-only run); acceptances ``[chains]``; final_state.  From
+    ``particle_mcmc``, the same without the chains axis."""
 
     thetas: torch.Tensor
     log_likelihoods: torch.Tensor
@@ -90,7 +91,7 @@ class PMMHResult:
     final_state: PMMHState
 
     def acceptance_rate(self):
-        return self.acceptances.float() / self.thetas.shape[1]
+        return self.acceptances.float() / self.thetas.shape[-2]
 
 
 def _split_theta(theta, infer_obs_param, fixed_obs_param):
@@ -347,3 +348,78 @@ def particle_mcmc_chains(
         acceptances=accepts,
         final_state=final_state,
     )
+
+
+def _map_state(state: PMMHState, fn) -> PMMHState:
+    w = state.welford
+    return PMMHState(theta=fn(state.theta), log_likelihood=fn(state.log_likelihood),
+                     trajectory=fn(state.trajectory),
+                     welford=Welford(fn(w.count), fn(w.mean), fn(w.m2)),
+                     acceptances=fn(state.acceptances), step=fn(state.step),
+                     log_scale=fn(state.log_scale))
+
+
+def particle_mcmc(
+    model: CompartmentModel,
+    obs_loglik,
+    seed: int,
+    y,
+    parameters,
+    h,
+    adaptive: bool = False,
+    sigma=None,
+    n_iters: int = 1000,
+    obs_param=0.1,
+    infer_obs_param: bool = False,
+    n_particles: int = 1000,
+    n_population=4820,
+    mu=20.0,
+    steps_per_unit: int = 20,
+    resampling: str = "systematic",
+    resample_threshold: float = 1.0,
+    resample_every: int = 1,
+    adapt_start: int = 1000,
+    n_init_attempts: int = 16,
+    sampler: str = "fast",
+    init_state: Optional[PMMHState] = None,
+    segment_len: Optional[int] = None,
+    log_every: int = 0,
+    telemetry_fn=None,
+    pooled_adaptation: bool = False,
+    target_acceptance: Optional[float] = None,
+    store_trajectories: bool = True,
+    device=None,
+) -> PMMHResult:
+    """One PMMH chain (``epitpu/mcmc/pmmh.py:278``), with ``seed`` in place
+    of epitpu's ``key``: chain 0 of ``particle_mcmc_chains`` run with one
+    chain and the same arguments, returned without the chains axis (thetas
+    ``[rows, d]``, log_likelihoods ``[rows]``, sampled_trajs ``[rows, T,
+    C]``; ``final_state``, and an ``init_state`` to continue, hold one
+    chain).  epitpu's ``pool_axes`` and ``filter_axis_name`` name JAX vmap
+    and mesh axes; here chains are batched by ``particle_mcmc_chains`` and
+    sharded by ``epitpu_torch.dist``."""
+    if pooled_adaptation:
+        raise ValueError(
+            "pooled_adaptation is only meaningful for chain-batched runs: use "
+            "particle_mcmc_chains(..., pooled_adaptation=True)"
+        )
+    if init_state is not None:
+        init_state = _map_state(init_state, lambda t: t[None])
+    res = particle_mcmc_chains(
+        model, obs_loglik, y, parameters, h, seed=seed, device=device, n_chains=1,
+        adaptive=adaptive, sigma=sigma, n_iters=n_iters, obs_param=obs_param,
+        infer_obs_param=infer_obs_param, n_particles=n_particles, n_population=n_population,
+        mu=mu, steps_per_unit=steps_per_unit, resampling=resampling,
+        resample_threshold=resample_threshold, resample_every=resample_every,
+        adapt_start=adapt_start, n_init_attempts=n_init_attempts, sampler=sampler,
+        init_state=init_state, segment_len=segment_len,
+        target_acceptance=target_acceptance, store_trajectories=store_trajectories,
+        log_every=log_every, telemetry_fn=telemetry_fn,
+    )
+    return PMMHResult(thetas=res.thetas[0], log_likelihoods=res.log_likelihoods[0],
+                      sampled_trajs=res.sampled_trajs[0], acceptances=res.acceptances[0],
+                      final_state=_map_state(res.final_state, lambda t: t[0]))
+
+
+# epitpu's jax.jit wrapper (epitpu/mcmc/pmmh.py:614); torch runs eagerly
+particle_mcmc_jit = particle_mcmc

@@ -3,9 +3,13 @@
 
 A model is data: a stoichiometry matrix, a source-compartment vector and a
 batched rate function ``(x[..., C], theta[..., d]) -> a[..., R]``.  The
-simulator, filter and PMMH are generic over any ``CompartmentModel``; the
-CUDA tau-leap kernel runs the models that carry a ``KernelSpec`` (the
-built-in families), and raises for the rest.
+simulator, filter and PMMH are generic over any ``CompartmentModel``.  On
+the card each model takes one path of the tau-leap kernel
+(``epitpu_torch.ops.tauleap_cuda.route``): a model that carries a
+``KernelSpec`` (the built-in families) its hand-written functor, any other
+model whose reactions have unique sources a functor generated from its own
+``rate_fn``, and a model whose reactions share a source (competing
+hazards) the plain torch twin on the card.
 """
 from __future__ import annotations
 
@@ -35,7 +39,11 @@ class CompartmentModel:
     source: ``[R]`` int array, the compartment whose count gates reaction r.
     rate_fn: ``(x[..., C], theta[..., d]) -> a[..., R]`` propensities.
     init_fn: ``(generator, shape, n_population, mu) -> x0[*shape, C]``.
-    kernel: the CUDA kernel's descriptor; None for a user-defined model.
+    kernel: the hand-written CUDA functor's descriptor; None for a
+      user-defined model.
+    terminal_compartments: indices whose total hitting zero makes the chain
+      absorbing (I for SIR; E and I for SEIR).  Informational, as in epitpu:
+      with zero rates the simulator freezes by itself.
     """
 
     name: str
@@ -49,6 +57,7 @@ class CompartmentModel:
     theta_names: Tuple[str, ...]
     init_fn: Callable = None
     kernel: Optional[KernelSpec] = None
+    terminal_compartments: Tuple[int, ...] = ()
 
     @property
     def num_compartments(self) -> int:
@@ -70,7 +79,7 @@ def _identity_observe(x):
 
 def make_model(name, compartments, stoich, source, rate_fn, theta_dim,
                theta_names, obs_dim=None, observe_map=_identity_observe,
-               init_fn=None, kernel=None) -> CompartmentModel:
+               init_fn=None, kernel=None, terminal_compartments=()) -> CompartmentModel:
     stoich = np.asarray(stoich, dtype=np.int32)
     source = np.asarray(source, dtype=np.int32)
     if stoich.ndim != 2 or stoich.shape[1] != len(compartments):
@@ -92,4 +101,5 @@ def make_model(name, compartments, stoich, source, rate_fn, theta_dim,
         theta_names=tuple(theta_names),
         init_fn=init_fn,
         kernel=kernel,
+        terminal_compartments=tuple(int(c) for c in terminal_compartments),
     )

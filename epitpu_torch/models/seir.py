@@ -51,4 +51,5 @@ def seir_model():
         theta_names=("beta", "alpha", "gamma"),
         init_fn=_init,
         kernel=KernelSpec("seir"),
+        terminal_compartments=(E, I),
     )

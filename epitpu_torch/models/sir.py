@@ -47,4 +47,5 @@ def sir_model():
         theta_names=("beta", "gamma"),
         init_fn=_init,
         kernel=KernelSpec("sir"),
+        terminal_compartments=(I,),
     )

@@ -102,4 +102,5 @@ def sir_subgroups_model(k=2, aggregated_obs=False, reference_dynamics=True):
         observe_map=_aggregate_groups(k) if aggregated_obs else _identity_observe,
         init_fn=_make_init(k),
         kernel=KernelSpec("sir_subgroups", k, bool(reference_dynamics)),
+        terminal_compartments=tuple(3 * g + 1 for g in range(k)),
     )

@@ -1,10 +1,20 @@
-"""Builds the package's CUDA sources into one shared library at first use.
+"""Builds the package's CUDA sources into shared libraries at first use.
 
-``nvcc`` compiles ``epitpu_torch/csrc/*.cu`` for Hopper (``sm_90a``) into
-``epitpu_torch/_build/libepitpu_kernels-<hash>.so``, a plain C interface
-loaded with ``ctypes``; the file name carries a hash of the sources and the
-flags, so an edited source builds anew.  No PyTorch headers are compiled,
-which keeps the build to seconds.
+``nvcc`` compiles ``epitpu_torch/csrc/tauleap.cu`` (the kernel template of
+``tauleap_kernel.cuh`` on the hand-written functors) for Hopper
+(``sm_90a``) into ``epitpu_torch/_build/libepitpu_kernels-<hash>.so``, a
+plain C interface loaded with ``ctypes``; the file name carries a hash of
+the sources and the flags, so an edited source builds anew.  No PyTorch
+headers are compiled, which keeps the build to seconds.
+
+A model without a hand-written functor gets its own library: the functor
+text ``epitpu_torch.ops.rate_trace.functor_source`` generates from the
+model's rate function, after ``#include "tauleap_kernel.cuh"`` and before
+one C entry ``epi_traj_generated``, is written to ``_build/<hash>.cu`` (by
+way of a file of the building thread's own) and compiled into
+``_build/libepitpu_gen-<hash>.so``, the hash over the header,
+that text and the flags.  It takes only the repo's header and the generated
+text; an nvcc failure raises with its output.
 
 ``--fmad=false`` and no ``--use_fast_math``: the kernels must round like
 their plain torch twins, which neither contract multiply-adds nor use the
@@ -17,13 +27,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("tauleap.cu",)
+SOURCES = ("tauleap.cu", "tauleap_kernel.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
@@ -44,8 +55,9 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def nvcc_command(nvcc, sources, output):
-    return [nvcc, *NVCC_FLAGS, "-o", str(output), *map(str, sources)]
+def nvcc_command(nvcc, sources, output, include=None):
+    inc = [] if include is None else ["-I", str(include)]
+    return [nvcc, *NVCC_FLAGS, *inc, "-o", str(output), *map(str, sources)]
 
 
 def library_path() -> Path:
@@ -64,7 +76,13 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = nvcc_command(find_nvcc(), [CSRC / s for s in SOURCES], tmp)
+    BUILD_INFO.update(_compile(nvcc_command(find_nvcc(), [CSRC / SOURCES[0]], tmp), tmp, out))
+    return out
+
+
+def _compile(cmd, tmp, out):
+    """Run nvcc; raise with its output on failure; move ``tmp`` to ``out``.
+    Returns the seconds, nvcc's resource report and the path."""
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -72,9 +90,7 @@ def build() -> Path:
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
     os.replace(tmp, out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      ptxas=proc.stderr.strip(), path=str(out))
-    return out
+    return dict(seconds=time.perf_counter() - t0, ptxas=proc.stderr.strip(), path=str(out))
 
 
 # ctypes signature of csrc/tauleap.cu:epi_traj, in its parameter order
@@ -90,6 +106,80 @@ EPI_TRAJ_ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_int,  # group, threads per block, blocks
     ctypes.c_void_p,  # cudaStream_t
 )
+
+
+# ctypes signature of the generated sources' epi_traj_generated: epi_traj's
+# parameters without family, k and transpose
+EPI_TRAJ_GENERATED_ARGTYPES = EPI_TRAJ_ARGTYPES[3:]
+
+GENERATED_ENTRY = """
+extern "C" int epi_traj_generated(const void* x0, const void* theta, void* out, int lanes,
+                                  int theta_stride, int lanes_per_theta, uint32_t k0,
+                                  uint32_t k1, uint32_t offset, uint32_t lane_c0,
+                                  uint32_t lane_n_local, uint32_t lane_n_total,
+                                  uint32_t lane_p0, int t_max, int n_sub, float dt,
+                                  int final_only, int group, int threads, int blocks,
+                                  void* stream) {
+  if (lanes <= 0) return 0;
+  const Launch l{static_cast<const float*>(x0), static_cast<const float*>(theta),
+                 static_cast<float*>(out), lanes, theta_stride, lanes_per_theta, k0, k1,
+                 offset, lane_c0, lane_n_local, lane_n_total, lane_p0, t_max, n_sub, dt,
+                 final_only, group, threads, blocks, static_cast<cudaStream_t>(stream)};
+  return launch<GeneratedModel>(l);
+}
+"""
+GENERATED_INFO = {}  # library path -> BUILD_INFO's fields for its build
+_GENERATED = {}  # library path -> loaded ctypes library
+
+
+def generated_source(functor: str) -> str:
+    """The ``.cu`` text for a generated functor (``rate_trace.functor_source``)."""
+    return ('// generated by epitpu_torch/ops/_build.py\n#include "tauleap_kernel.cuh"\n\n'
+            + functor + GENERATED_ENTRY)
+
+
+def generated_path(functor: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / SOURCES[1]).read_bytes())
+    h.update(generated_source(functor).encode())
+    return BUILD_DIR / f"libepitpu_gen-{h.hexdigest()[:16]}.so"
+
+
+def build_generated(functor: str) -> Path:
+    """Compile a generated functor's library unless one of its hash exists;
+    records the build in ``GENERATED_INFO``.  Safe to call from several
+    threads or processes at once, for the same functor too: each nvcc run
+    reads a source and writes a library of its own, moved into place
+    (``<hash>.cu`` keeps the text, also after an nvcc failure)."""
+    out = generated_path(functor)
+    if out.exists():
+        GENERATED_INFO.setdefault(str(out), dict(seconds=0.0, ptxas="", path=str(out)))
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stem = out.name[len("libepitpu_gen-"):-len(".so")]
+    own = f"{os.getpid()}.{threading.get_ident()}"
+    src, tmp_src = BUILD_DIR / f"{stem}.cu", BUILD_DIR / f"{stem}.{own}.cu"
+    tmp_src.write_text(generated_source(functor))
+    tmp = out.with_suffix(f".{own}.tmp")
+    try:
+        GENERATED_INFO[str(out)] = _compile(nvcc_command(find_nvcc(), [tmp_src], tmp, CSRC),
+                                            tmp, out)
+    finally:
+        os.replace(tmp_src, src)
+    return out
+
+
+def load_generated(functor: str):
+    """The generated functor's library (built at first use), with
+    ``epi_traj_generated``'s ctypes signature set."""
+    path = build_generated(functor)
+    lib = _GENERATED.get(str(path))
+    if lib is None:
+        lib = ctypes.CDLL(str(path))
+        lib.epi_traj_generated.argtypes = list(EPI_TRAJ_GENERATED_ARGTYPES)
+        lib.epi_traj_generated.restype = ctypes.c_int
+        _GENERATED[str(path)] = lib
+    return lib
 
 
 def load_library():

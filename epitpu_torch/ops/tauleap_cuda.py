@@ -1,29 +1,44 @@
 """Per-lane tau-leap trajectories: the CUDA kernel and its plain torch twin.
 
 ``simulate_lanes`` advances ``B`` independent (theta, x0) lanes through
-``t_max * n_sub`` substeps and records the state at every integer time,
-``[B, t_max+1, C]`` — the layout of ``epitpu.ops.pallas_simulate`` — or,
-with ``final_only``, only the state at ``t_max``, ``[B, C]``.  Consecutive
-lanes may share a theta row (``lanes_per_theta``).  Its callers are the
-particle filter's propagation (``t_max=1``, final state only, one theta row
-per chain, one launch per filter step, through
-``epitpu_torch.sim.tauleap.advance``), the posterior forecast, ABC
-rejection (one launch per candidate batch) and the app.  A shard of a
-sharded filter step (``epitpu_torch.dist``) passes a ``lane_map`` so that
-its lanes draw the bits the same particles draw in the unsharded launch
-(``epitpu_torch.rng.lane_map_ids``).
+``t_max * n_sub`` substeps of length ``dt`` (default ``1 / n_sub``) and
+records the state at every integer time, ``[B, t_max+1, C]`` -- the layout
+of ``epitpu.ops.pallas_simulate`` -- or, with ``final_only``, only the state
+at ``t_max``, ``[B, C]``.  Consecutive lanes may share a theta row
+(``lanes_per_theta``).  Its callers are the particle filter's propagation
+(``t_max=1``, final state only, one theta row per chain, one launch per
+filter step, through ``epitpu_torch.sim.tauleap.advance``), the posterior
+forecast, ABC rejection (one launch per candidate batch) and the app.  A
+shard of a sharded filter step (``epitpu_torch.dist``) passes a
+``lane_map`` so that its lanes draw the bits the same particles draw in the
+unsharded launch (``epitpu_torch.rng.lane_map_ids``).
 
-On a CUDA tensor it launches ``csrc/tauleap.cu`` (built by ``_build``),
-instantiated on the model's family (``model.kernel``: SIR, SEIR, or K-group
-SIR with K up to ``MAX_GROUPS`` and either dynamics), in the shape
-``launch_geometry`` gives, or raises; on a CPU tensor it runs
-``simulate_lanes_reference``, the plain twin on the same Philox counters.
-``FAMILY_LAUNCHES`` counts kernel launches per family, ``launches()`` all
-of them.
+On a CPU tensor it runs ``simulate_lanes_reference``, the plain twin on the
+same Philox counters.  On a CUDA tensor the model's structure picks one of
+three routes before anything is launched (``route``), as epitpu picks its
+Pallas kernel or its XLA scan (``epitpu/ops/tauleap_pallas.py:
+pallas_simulate_supported``):
+
+* ``"hand"``: a built-in family (``model.kernel``: SIR, SEIR, or K-group SIR
+  with K up to ``MAX_GROUPS``, either dynamics) launches
+  ``csrc/tauleap.cu``'s hand-written functor;
+* ``"generated"``: any other model whose reactions have unique sources
+  (K-group SIR past ``MAX_GROUPS`` too) launches the kernel on a functor
+  traced from its own ``rate_fn`` (``rate_trace``, built by ``_build``);
+* ``"plain"``: a model whose reactions share a source (competing hazards),
+  which epitpu never gives its kernel, runs the twin on the card: the
+  declared counterpart of epitpu's XLA scan, not a fallback.
+
+A launch that fails raises; nothing retries on another route.
+``FAMILY_LAUNCHES`` counts kernel launches per family (and ``"generated"``)
+and the plain route's calls (``"plain"``); ``launches()`` sums the kernel
+launches.
 """
 from __future__ import annotations
 
 import functools
+import math
+import weakref
 
 import torch
 
@@ -32,30 +47,48 @@ from ..rng import lane_draws, seed_key
 from ..sim.samplers import binomial_from_draws
 from ..sim.tauleap import n_draw_slots, substep
 
-# model families the kernel is instantiated on, by their id in csrc/tauleap.cu
+# model families with a hand-written functor, by their id in csrc/tauleap.cu
 FAMILIES = ("sir", "seir", "sir_subgroups")
+KERNEL_PATHS = FAMILIES + ("generated",)  # the FAMILY_LAUNCHES keys that count launches
 MAX_GROUPS = 8  # csrc/tauleap.cu:kMaxGroups
-MAX_THREADS = 256  # per block, csrc/tauleap.cu:kMaxThreads
-FAMILY_LAUNCHES = dict.fromkeys(FAMILIES, 0)
+MAX_THREADS = 256  # per block, csrc/tauleap_kernel.cuh:kMaxThreads
+MAX_GROUP = 32  # threads a lane, csrc/tauleap_kernel.cuh:kMaxGroup
+FAMILY_LAUNCHES = dict.fromkeys(KERNEL_PATHS + ("plain",), 0)
 
 
 def launches():
-    return sum(FAMILY_LAUNCHES.values())
+    """Kernel launches so far, every family and generated functor."""
+    return sum(FAMILY_LAUNCHES[p] for p in KERNEL_PATHS)
 
 
 def reset_launch_counts():
-    for f in FAMILIES:
+    for f in FAMILY_LAUNCHES:
         FAMILY_LAUNCHES[f] = 0
+
+
+def route(model: CompartmentModel) -> str:
+    """The path ``model`` takes on the card, from its structure alone:
+    ``"hand"`` for a ``KernelSpec`` family (subgroups up to ``MAX_GROUPS``),
+    else ``"generated"`` when no two reactions share a source, else
+    ``"plain"``."""
+    spec = model.kernel
+    if spec is not None:
+        if spec.family not in FAMILIES:
+            raise ValueError(f"unknown kernel family {spec.family!r}; options {FAMILIES}")
+        if spec.family != "sir_subgroups" or 1 <= spec.k <= MAX_GROUPS:
+            return "hand"
+    return "generated" if model.sources_unique else "plain"
 
 
 def launch_geometry(reactions: int, lanes: int, sms: int = 132):
     """``(group, threads, blocks)`` of one launch of a model with
     ``reactions`` reactions (``model.num_reactions``): ``group`` threads per
-    lane (the next power of two >= ``reactions``), ``threads`` per block
-    (256, or fewer when 256 would give fewer blocks than the card's ``sms``
-    multiprocessors, down to one warp), and the blocks that cover
+    lane (the next power of two >= ``reactions``, at most ``MAX_GROUP``; a
+    thread of a larger model draws reactions t, t + 32, ...), ``threads`` per
+    block (256, or fewer when 256 would give fewer blocks than the card's
+    ``sms`` multiprocessors, down to one warp), and the blocks that cover
     ``lanes x group`` threads with no empty block."""
-    group = 1 << (int(reactions) - 1).bit_length()
+    group = min(1 << (int(reactions) - 1).bit_length(), MAX_GROUP)
     need = int(lanes) * group
     threads = 32
     for t in (MAX_THREADS, 128, 64):
@@ -73,19 +106,20 @@ def _sm_count(index: int) -> int:
 def simulate_lanes_reference(model: CompartmentModel, x0, theta, seed: int,
                              offset: int, t_max: int, n_sub: int,
                              final_only: bool = False, lanes_per_theta: int = 1,
-                             work=None, lane_map=None):
-    """Plain torch twin of the kernel, for any model: ``substep`` on the
-    (uniform, normal) pairs of counter (lane, offset, substep, slot), the
-    lane word through ``lane_map`` (identity when None).  ``final_only``
-    slices the last row, ``lanes_per_theta`` repeats each theta row.  A
-    ``work`` dict, if given, accumulates the draws, the draws of the small
-    regime and their CDF terms (``binomial_from_draws``)."""
+                             work=None, lane_map=None, dt=None):
+    """Plain torch twin of the kernel, for any model: ``substep`` of length
+    ``dt`` (default ``1 / n_sub``) on the (uniform, normal) pairs of counter
+    (lane, offset, substep, slot), the lane word through ``lane_map``
+    (identity when None).  ``final_only`` slices the last row,
+    ``lanes_per_theta`` repeats each theta row.  A ``work`` dict, if given,
+    accumulates the draws, the draws of the small regime and their CDF terms
+    (``binomial_from_draws``)."""
     if lanes_per_theta != 1:
         theta = theta.repeat_interleave(lanes_per_theta, dim=0)
     b = x0.shape[0]
     u, z = lane_draws(seed, offset, range(t_max * n_sub), b,
                       n_draw_slots(model), device=x0.device, lane_map=lane_map)
-    dt = 1.0 / n_sub
+    dt = 1.0 / n_sub if dt is None else dt
     x = x0
     out = [x]
     step = 0
@@ -105,22 +139,28 @@ def simulate_lanes_reference(model: CompartmentModel, x0, theta, seed: int,
     return out[:, -1] if final_only else out
 
 
-def kernel_args(model: CompartmentModel):
-    """The kernel's ``(family id, k, transpose)`` for ``model``; raises
-    ``NotImplementedError`` for a model the kernel is not built for (a
-    user-defined model, or more than ``MAX_GROUPS`` subgroups)."""
+def hand_args(model: CompartmentModel):
+    """The C entry ``epi_traj``'s ``(family id, k, transpose)`` for a model
+    on the ``"hand"`` route."""
+    if route(model) != "hand":
+        raise ValueError(f"model {model.name!r} has no hand-written functor "
+                         f"(route {route(model)!r})")
     spec = model.kernel
-    if spec is None or spec.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the CUDA tau-leap kernel is built for the families {FAMILIES}; "
-            f"model {model.name!r} is not one of them"
-        )
-    if spec.family == "sir_subgroups" and not 1 <= spec.k <= MAX_GROUPS:
-        raise NotImplementedError(
-            f"the CUDA tau-leap kernel is built for 1 to {MAX_GROUPS} subgroups, "
-            f"not {spec.k}"
-        )
     return FAMILIES.index(spec.family), int(spec.k), int(spec.transpose)
+
+
+_GENERATED = weakref.WeakKeyDictionary()  # model -> its generated library
+
+
+def generated_library(model: CompartmentModel):
+    """The library of ``model``'s generated functor, traced and built at
+    first use and kept for the model's lifetime."""
+    lib = _GENERATED.get(model)
+    if lib is None:
+        from . import _build, rate_trace
+
+        lib = _GENERATED[model] = _build.load_generated(rate_trace.functor_source(model))
+    return lib
 
 
 IDENTITY_LANE_MAP = (0, 1, 1, 0)
@@ -140,7 +180,7 @@ def _check_lane_map(lane_map, b):
         raise ValueError(f"lane map {tuple(lane_map)}: lane words past 32 bits for B={b}")
 
 
-def _check(model, x0, theta, offset, t_max, n_sub, lanes_per_theta):
+def _check(model, x0, theta, offset, t_max, n_sub, lanes_per_theta, dt):
     if x0.dtype != torch.float32 or theta.dtype != torch.float32:
         raise TypeError(f"x0 and theta must be float32, got {x0.dtype}, {theta.dtype}")
     if x0.dim() != 2 or x0.shape[1] != model.num_compartments:
@@ -157,32 +197,47 @@ def _check(model, x0, theta, offset, t_max, n_sub, lanes_per_theta):
         raise ValueError(f"x0 on {x0.device} but theta on {theta.device}")
     if not (0 <= int(offset) <= 0xFFFFFFFF) or int(t_max) < 0 or int(n_sub) < 1:
         raise ValueError(f"bad offset/t_max/n_sub: {offset}, {t_max}, {n_sub}")
+    if dt is not None and not (math.isfinite(float(dt)) and float(dt) > 0):
+        raise ValueError(f"dt must be a positive number, got {dt}")
 
 
 def simulate_lanes(model: CompartmentModel, x0, theta, seed: int, offset: int,
                    t_max: int, n_sub: int = 20, final_only: bool = False,
-                   lanes_per_theta: int = 1, lane_map=None):
+                   lanes_per_theta: int = 1, lane_map=None, dt=None):
     """x0 ``[B, C]`` float32, theta ``[B / lanes_per_theta, d]`` float32
     (lane b reads row ``b // lanes_per_theta``), ``seed`` a 64-bit int,
     ``offset`` the Philox call offset -> ``[B, t_max+1, C]``, or ``[B, C]``
-    (the state at ``t_max``) with ``final_only``.  ``lane_map`` (chain
-    offset, local particles per chain, total particles per chain, particle
-    offset) sets the counter's lane words; None is the identity."""
-    _check(model, x0, theta, offset, t_max, n_sub, lanes_per_theta)
+    (the state at ``t_max``) with ``final_only``.  Each of the ``n_sub``
+    substeps of a unit is ``dt`` long (default ``1 / n_sub``).  ``lane_map``
+    (chain offset, local particles per chain, total particles per chain,
+    particle offset) sets the counter's lane words; None is the identity.
+    On a CUDA tensor the model's ``route`` decides what runs."""
+    _check(model, x0, theta, offset, t_max, n_sub, lanes_per_theta, dt)
+    dt = 1.0 / int(n_sub) if dt is None else float(dt)
     lane_map = IDENTITY_LANE_MAP if lane_map is None else tuple(int(v) for v in lane_map)
     _check_lane_map(lane_map, x0.shape[0])
     t_max, n_sub, lpt = int(t_max), int(n_sub), int(lanes_per_theta)
     if x0.device.type == "cpu":
         return simulate_lanes_reference(model, x0, theta, seed, offset, t_max, n_sub,
-                                        final_only, lpt, lane_map=lane_map)
+                                        final_only, lpt, lane_map=lane_map, dt=dt)
     if x0.device.type != "cuda":
         raise ValueError(f"no tau-leap kernel for device {x0.device}")
-    family, k, transpose = kernel_args(model)
+    path = route(model)
+    if path == "plain":
+        out = simulate_lanes_reference(model, x0, theta, seed, offset, t_max, n_sub,
+                                       final_only, lpt, lane_map=lane_map, dt=dt)
+        FAMILY_LAUNCHES["plain"] += 1
+        return out
     if not (x0.is_contiguous() and theta.is_contiguous()):
         raise ValueError("x0 and theta must be contiguous")
-    from ._build import load_library
+    if path == "hand":
+        from ._build import load_library
 
-    lib = load_library()
+        entry = functools.partial(load_library().epi_traj, *hand_args(model))
+        counter = model.kernel.family
+    else:
+        entry = generated_library(model).epi_traj_generated
+        counter = "generated"
     b, c_dim = x0.shape
     rows = (b, c_dim) if final_only else (b, t_max + 1, c_dim)
     out = torch.empty(rows, dtype=torch.float32, device=x0.device)
@@ -193,12 +248,13 @@ def simulate_lanes(model: CompartmentModel, x0, theta, seed: int, offset: int,
     k0, k1 = seed_key(seed)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
-        rc = lib.epi_traj(
-            family, k, transpose, x0.data_ptr(), theta.data_ptr(), out.data_ptr(), b,
-            theta.shape[1], lpt, k0, k1, int(offset), *lane_map, t_max, n_sub, 1.0 / n_sub,
-            int(final_only), group, threads, blocks, stream,
+        rc = entry(
+            x0.data_ptr(), theta.data_ptr(), out.data_ptr(), b, theta.shape[1], lpt, k0, k1,
+            int(offset), *lane_map, t_max, n_sub, dt, int(final_only), group, threads, blocks,
+            stream,
         )
     if rc != 0:
-        raise RuntimeError(f"tau-leap kernel launch failed with CUDA error {rc}")
-    FAMILY_LAUNCHES[model.kernel.family] += 1
+        raise RuntimeError(f"tau-leap kernel launch ({path} route, model {model.name!r}) "
+                           f"failed with CUDA error {rc}")
+    FAMILY_LAUNCHES[counter] += 1
     return out

@@ -90,3 +90,14 @@ def exact_binomial(generator, n, p):
 
 PHILOX_SAMPLERS = ("fast", "fast_rbg")
 SAMPLERS = PHILOX_SAMPLERS + ("exact",)
+_SAMPLERS = {"fast": fast_binomial, "fast_rbg": fast_binomial, "exact": exact_binomial}
+
+
+def get_binomial_sampler(name):
+    """The sampler function ``name`` selects: ``fast_binomial(seed, offset,
+    step, n, p)`` for the Philox samplers, ``exact_binomial(generator, n,
+    p)`` for "exact"."""
+    try:
+        return _SAMPLERS[name]
+    except KeyError:
+        raise ValueError(f"unknown binomial sampler {name!r}; options {SAMPLERS}") from None

@@ -6,9 +6,12 @@ source compartment draw the total exits first and split them by
 conditional binomials.  States are float32 holding integer counts.
 
 ``advance`` and ``simulate`` run every lane through
-``epitpu_torch.ops.tauleap_cuda.simulate_lanes``: on a CUDA tensor that is
-the hand-written kernel (or an error for a model or sampler the kernel does
-not know), on a CPU tensor its plain twin, which is built from ``substep``.
+``epitpu_torch.ops.tauleap_cuda.simulate_lanes``: on a CUDA tensor the
+kernel on the model's hand-written or generated functor, or for a model
+whose reactions share a source (competing hazards, below) the plain twin on
+the card, chosen by the model's structure (``tauleap_cuda.route``) as
+epitpu runs such a model through its XLA scan and not its Pallas kernel; on
+a CPU tensor the plain twin, which is built from ``substep``.
 ``sampler="exact"`` is plain torch on the tensor's device (``torch.binomial``
 with the caller's generator), as epitpu's exact sampler is plain XLA.
 """
@@ -110,7 +113,7 @@ def _lanes(x, theta):
     return xb, th.expand(*lead, d).reshape(-1, d).contiguous(), 1, lead
 
 
-def _exact_run(model, x, theta, t_max, n_sub, generator):
+def _exact_run(model, x, theta, t_max, n_sub, generator, dt):
     """The validation sampler on ``x``'s device: ``generator`` (a
     ``torch.Generator`` on that device, or None for torch's default) feeds
     ``torch.binomial``."""
@@ -118,42 +121,50 @@ def _exact_run(model, x, theta, t_max, n_sub, generator):
     out = [x]
     for _ in range(t_max):
         for _ in range(n_sub):
-            x = substep(model, x, theta, 1.0 / n_sub, draw)
+            x = substep(model, x, theta, dt, draw)
         out.append(x)
     return torch.stack(out, dim=1)
 
 
-def _run_lanes(model, stream, x0, theta, t_max, steps_per_unit, sampler,
-               generator, final_only=False, lane_map=None):
+def _run_lanes(model, stream, x0, theta, t_max, n_sub, sampler,
+               generator, final_only=False, lane_map=None, dt=None):
+    """``t_max`` units of ``n_sub`` substeps of length ``dt`` (default
+    ``1 / n_sub``)."""
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown binomial sampler {sampler!r}; options {SAMPLERS}")
+    dt = 1.0 / n_sub if dt is None else dt
     xb, th, lpt, lead = _lanes(x0.to(torch.float32), theta)
     if sampler in PHILOX_SAMPLERS:
         from ..ops.tauleap_cuda import simulate_lanes
 
         out = simulate_lanes(model, xb, th, stream.seed, stream.next_offset(),
-                             t_max, steps_per_unit, final_only, lpt, lane_map)
+                             t_max, n_sub, final_only, lpt, lane_map, dt)
     else:
         if lane_map is not None:
             raise ValueError("sampler='exact' draws from a generator, not per lane: "
                              "it takes no lane map")
         out = _exact_run(model, xb, th.repeat_interleave(lpt, dim=0), t_max,
-                         steps_per_unit, generator)
+                         n_sub, generator, dt)
         out = out[:, -1] if final_only else out
     return out, lead
 
 
 def advance(model: CompartmentModel, x, theta, stream, steps_per_unit=20,
-            sampler="fast", generator=None, lane_map=None):
-    """Advance ``x: [..., C]`` by one time unit in ``steps_per_unit``
-    substeps; ``theta`` broadcasts against x's leading dims (one row per
-    chain serves every particle of the chain, without a copy).  One Philox
-    call offset of ``stream`` per call; ``generator`` serves
-    sampler="exact"; ``lane_map`` places a shard's lanes in the unsharded
-    launch (``epitpu_torch.ops.tauleap_cuda.simulate_lanes``).  On the card
-    this is one kernel launch writing only the new state."""
-    out, lead = _run_lanes(model, stream, x, theta, 1, steps_per_unit,
-                           sampler, generator, final_only=True, lane_map=lane_map)
+            sampler="fast", generator=None, lane_map=None, t_span=1.0):
+    """Advance ``x: [..., C]`` by ``t_span`` time units in
+    ``round(t_span * steps_per_unit)`` substeps of ``t_span / n_steps``
+    (epitpu/sim/tauleap.py:139-165); ``theta`` broadcasts against x's
+    leading dims (one row per chain serves every particle of the chain,
+    without a copy).  One Philox call offset of ``stream`` per call;
+    ``generator`` serves sampler="exact"; ``lane_map`` places a shard's lanes
+    in the unsharded launch (``epitpu_torch.ops.tauleap_cuda.simulate_lanes``).
+    On the card this is one kernel launch writing only the new state."""
+    n_steps = int(round(t_span * steps_per_unit))
+    if n_steps < 1:
+        raise ValueError(f"t_span={t_span} x steps_per_unit={steps_per_unit} rounds to no "
+                         "substep")
+    out, lead = _run_lanes(model, stream, x, theta, 1, n_steps, sampler, generator,
+                           final_only=True, lane_map=lane_map, dt=t_span / n_steps)
     return out.reshape(*lead, x.shape[-1])
 
 

@@ -190,3 +190,8 @@ def particle_filter(
         degenerate=degen,
         final_logw=lw,
     )
+
+
+# epitpu's jax.jit wrapper of the same function (epitpu/smc/filter.py:288);
+# torch runs eagerly, so the name is the function itself
+particle_filter_jit = particle_filter

@@ -66,8 +66,44 @@ def multinomial_resample(u, logw):
     return _finish(_ancestors(cdf, u * cdf[..., -1:]), degenerate)
 
 
+def systematic_resample_scatter(u, logw):
+    """Systematic resampling in O(N), as
+    ``epitpu.smc.resample.systematic_resample_scatter``: the points
+    ``(j + u) * total / N`` are sorted, so the count of points below each
+    CDF value, ``clip(ceil(cdf * N / total - u), 0, N)``, fixes every
+    ancestor; a 1 scattered at each ancestor's first slot and a cumulative
+    sum invert the counts.  The same ancestors as ``systematic_resample``
+    for the same ``u: [..., 1]``, except at boundary ties of the two
+    roundings."""
+    n = logw.shape[-1]
+    cdf, degenerate = _safe_cdf(logw)
+    total = cdf[..., -1:]
+    q = torch.clamp(torch.ceil(cdf * (n / total) - u), 0.0, float(n)).to(torch.int64)
+    offsets = torch.cat([torch.zeros_like(q[..., :1]), q[..., :-1]], dim=-1)
+    # offsets of n (the trailing zero-count ancestors) land in a spare slot
+    d = torch.zeros(offsets.shape[:-1] + (n + 1,), dtype=torch.int64, device=logw.device)
+    d.scatter_add_(-1, offsets, torch.ones_like(offsets))
+    return _finish(torch.cumsum(d[..., :n], dim=-1) - 1, degenerate)
+
+
+# kind -> (resampler, draws one uniform per particle)
 _RESAMPLERS = {"systematic": (systematic_resample, False),
+               "systematic_scatter": (systematic_resample_scatter, False),
                "multinomial": (multinomial_resample, True)}
+
+
+def get_resampler(kind):
+    """The resampler ``(u, logw) -> (ancestors, degenerate)`` named ``kind``."""
+    return _resampler(kind)[0]
+
+
+def _resampler(kind):
+    try:
+        return _RESAMPLERS[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown resampling kind {kind!r}; options: {sorted(_RESAMPLERS)}"
+        ) from None
 
 
 def resample_particles(kind, logw, generator, rows=None):
@@ -75,12 +111,7 @@ def resample_particles(kind, logw, generator, rows=None):
     ``rows = (offset, total)`` says that ``logw [chains, N]`` holds rows
     ``offset..offset+chains-1`` of ``total``: the uniforms are drawn for all
     ``total`` rows and sliced, as a sharded run must (``smc.filter``)."""
-    try:
-        fn, per_particle = _RESAMPLERS[kind]
-    except KeyError:
-        raise ValueError(
-            f"unknown resampling kind {kind!r}; options: {sorted(_RESAMPLERS)}"
-        ) from None
+    fn, per_particle = _resampler(kind)
     k = logw.shape[-1] if per_particle else 1
     lead = logw.shape[:-1] if rows is None else (rows[1],) + logw.shape[1:-1]
     u = torch.rand(lead + (k,), generator=generator, device=logw.device, dtype=logw.dtype)

@@ -2,9 +2,11 @@
 
     python3 k4_ablation.py
 
-Builds variants of ``epitpu_torch/csrc/tauleap.cu``, each undoing one part
-of its design by a text edit of a copy of the source (the shipped file is
-not touched; an edit whose anchor text is not found once raises), checks
+Builds variants of the hand-written kernel library
+(``epitpu_torch/csrc/tauleap.cu`` with the kernel template of
+``tauleap_kernel.cuh``), each undoing one part of its design by a text edit
+of a copy of the two sources (the shipped files are not touched; an edit
+whose anchor text is not found once in the two raises), checks
 that every variant gives the shipped kernel's output bit for bit (they
 compute the same function), and times them with CUDA events, in turns
 (shipped, variants, variants reversed, shipped), at four cases: SIR and
@@ -59,10 +61,11 @@ from epitpu_torch.rng import seed_key
 EARLY_EXIT = ("      if (!(u >= cdf)) break;  // (b): no later term can count\n"
               "      x += 1.0f;\n")
 LOOP_TOP = "  uint32_t step = 0;\n  for (int t = 1; t <= t_max; ++t) {\n"
-DRAW_TOP = "      float ev = 0.0f;\n      if (drawer) {\n"
-DRAW_WORDS = ("        const Words w = philox(Words{lane, offset, step, (uint32_t)r}, "
+# the draw of a thread's reaction q (one reaction a thread at SIR and K = 8)
+DRAW_TOP = "        ev[p] = 0.0f;\n        if (live && q < R) {\n"
+DRAW_WORDS = ("          const Words w = philox(Words{lane, offset, step, (uint32_t)q}, "
               "k0, k1);\n")
-DRAW_END = "      }\n      float e[R];\n"
+DRAW_END = "        }\n      }\n      float e[R];\n"
 PHILOX_ROUNDS = "  for (int i = 0; i < 10; ++i) {\n"
 BOX_MULLER = "  return r * cosf(6.2831855f * u2);\n"
 BINOMIAL_NOTE = "// Binomial(n, p) from the Philox words"
@@ -105,11 +108,7 @@ traj_kernel(const float* __restrict__ x0, const float* __restrict__ theta,
         const Words w = philox(Words{lane, offset, step, (uint32_t)q}, k0, k1);
         e[q] = binomial(w, n, fire_probability(M::rate(x, coef[q], q), n, dt));
       }
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        x[M::src(q)] = x[M::src(q)] - e[q];
-        x[M::src(q) + 1] = x[M::src(q) + 1] + e[q];
-      }
+      M::apply(x, e);
     }
     if (!final_only || t == t_max) store<C, 1>(o + (final_only ? 0 : C * t), x, 0);
   }
@@ -124,10 +123,10 @@ EDITS = {
     "philox_ahead": [
         (LOOP_TOP, "  uint32_t step = 0;\n  Words w = philox(Words{lane, offset, 0u, "
                    "(uint32_t)r}, k0, k1);\n  for (int t = 1; t <= t_max; ++t) {\n"),
-        (DRAW_TOP, "      const Words next = philox(Words{lane, offset, step + 1u, "
-                   "(uint32_t)r}, k0, k1);\n" + DRAW_TOP),
+        (DRAW_TOP, "        const Words next = philox(Words{lane, offset, step + 1u, "
+                   "(uint32_t)q}, k0, k1);\n" + DRAW_TOP),
         (DRAW_WORDS, ""),
-        (DRAW_END, "      }\n      w = next;\n      float e[R];\n"),
+        (DRAW_END, "        }\n        w = next;\n      }\n      float e[R];\n"),
     ],
     "zero_guard": [
         (BINOMIAL_NOTE, DIVIDE_GUARD + BINOMIAL_NOTE),
@@ -148,21 +147,29 @@ SCAN_WARPS_PER_SM = (1, 2, 4, 8, 16)
 SEED = 20261016
 
 
-def variant_source(name):
-    """The source with ``name``'s edits; an anchor of None replaces the
-    kernel template itself (KERNEL_START up to KERNEL_END)."""
-    src = (_build.CSRC / "tauleap.cu").read_text()
+def variant_sources(name):
+    """{file name: text} of the library's sources (``_build.SOURCES``) with
+    ``name``'s edits, each anchor found once in the two; an anchor of None
+    replaces the kernel template itself (KERNEL_START up to KERNEL_END)."""
+    srcs = {f: (_build.CSRC / f).read_text() for f in _build.SOURCES}
+
+    def owner(anchor):
+        hits = [f for f, text in srcs.items() if text.count(anchor) == 1]
+        if len(hits) != 1 or sum(text.count(anchor) for text in srcs.values()) != 1:
+            raise RuntimeError(f"variant {name}: the anchor {anchor[:40]!r} does not occur once")
+        return hits[0]
+
     for old, new in EDITS[name]:
         if old is None:
-            if src.count(KERNEL_START) != 1 or src.count(KERNEL_END) != 1:
-                raise RuntimeError(f"variant {name}: the kernel's anchors are not unique")
-            start, end = src.index(KERNEL_START), src.index(KERNEL_END)
-            src = src[:start] + new + src[end:]
+            f = owner(KERNEL_START)
+            if owner(KERNEL_END) != f:
+                raise RuntimeError(f"variant {name}: the kernel's anchors are in two files")
+            start, end = srcs[f].index(KERNEL_START), srcs[f].index(KERNEL_END)
+            srcs[f] = srcs[f][:start] + new + srcs[f][end:]
             continue
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {name}: the edit's anchor occurs {src.count(old)} times")
-        src = src.replace(old, new)
-    return src
+        f = owner(old)
+        srcs[f] = srcs[f].replace(old, new)
+    return srcs
 
 
 def build_variants():
@@ -171,8 +178,9 @@ def build_variants():
     for name in EDITS:
         d = _build.BUILD_DIR / "ablation" / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "tauleap.cu").write_text(variant_source(name))
-        cmd = _build.nvcc_command(_build.find_nvcc(), [d / "tauleap.cu"], d / "lib.so")
+        for f, text in variant_sources(name).items():
+            (d / f).write_text(text)  # tauleap.cu includes the header beside it
+        cmd = _build.nvcc_command(_build.find_nvcc(), [d / _build.SOURCES[0]], d / "lib.so")
         procs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                            text=True))
     libs = {}
@@ -192,7 +200,7 @@ def launcher(lib, model, x0, theta, t_max, final_only, per_theta, group=None, th
     fixed output, in launch_geometry's shape for ``group`` threads a lane
     (default: the model's), or with ``threads`` a block."""
     b, c = x0.shape
-    family, k, transpose = tauleap_cuda.kernel_args(model)
+    family, k, transpose = tauleap_cuda.hand_args(model)
     g, t, blocks = tauleap_cuda.launch_geometry(group or model.num_reactions, b, SMS)
     if threads is not None:
         t, blocks = threads, -(-b * g // threads)

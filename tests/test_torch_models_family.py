@@ -78,14 +78,18 @@ def test_kernel_descriptors():
         KernelSpec("sir_subgroups", 3, False)
     # the aggregated observation has the per-group model's dynamics
     assert sir_subgroups_model(2, aggregated_obs=True).kernel == sir_subgroups_model(2).kernel
-    assert tauleap_cuda.kernel_args(sir_subgroups_model(8)) == (2, 8, 1)
-    assert tauleap_cuda.kernel_args(seir_model()) == (1, 1, 0)
-    with pytest.raises(NotImplementedError, match=f"1 to {tauleap_cuda.MAX_GROUPS} subgroups"):
-        tauleap_cuda.kernel_args(sir_subgroups_model(tauleap_cuda.MAX_GROUPS + 1))
+    assert tauleap_cuda.hand_args(sir_subgroups_model(8)) == (2, 8, 1)
+    assert tauleap_cuda.hand_args(seir_model()) == (1, 1, 0)
+    # past MAX_GROUPS subgroups, and a user model, take the generated functor
+    more = sir_subgroups_model(tauleap_cuda.MAX_GROUPS + 1)
+    assert tauleap_cuda.route(more) == "generated"
+    with pytest.raises(ValueError, match="no hand-written functor"):
+        tauleap_cuda.hand_args(more)
     user = make_model("sis", ("s", "i"), [[-1, 1], [1, -1]], [0, 1],
                       lambda x, th: x * th, 2, ("beta", "gamma"))
-    with pytest.raises(NotImplementedError, match="not one of them"):
-        tauleap_cuda.kernel_args(user)
+    assert tauleap_cuda.route(user) == "generated"
+    with pytest.raises(ValueError, match="no hand-written functor"):
+        tauleap_cuda.hand_args(user)
 
 
 @pytest.mark.parametrize("name", ["seir", "sub2_T", "sub3_F"])
