@@ -13,6 +13,13 @@ device.  The host loop:
   * enqueues the next batch before fetching the current batch's accepted
     rows, and launches nothing once the current batch completes the sample.
 
+Spans (``epitpu_torch.profiling``): ``abc_call`` the whole call,
+``abc_batch_launch`` the enqueue of each batch (its id the batch index),
+``abc_mask_sync`` the accept mask's copy, ``abc_fetch`` the accepted rows'
+indexing and copy; counters ``abc.batches`` and ``abc.host_copies`` (each
+blocking device-to-host copy: the mask, the accepted thetas, the accepted
+trajectories).
+
 Randomness: a ``torch.Generator`` on the device seeded from
 ``derive_seed(seed, 0)`` for thetas and initial states, and for batch ``b``
 the Philox seed ``derive_seed(seed, 1, b)`` for the simulation.
@@ -28,6 +35,7 @@ import torch
 from ..device import resolve_device
 from ..models.base import CompartmentModel
 from ..ops.tauleap_cuda import route, simulate_lanes
+from ..profiling import count, scope, spanned
 from ..rng import derive_seed
 
 # "auto" and "pallas" both name simulate_lanes: on CUDA the kernel, or the
@@ -79,6 +87,7 @@ def _batch(model, gen, observed, batch_size, lo, hi, sim_seed, t_max,
     return thetas, sim, dist
 
 
+@spanned("abc_call")
 def abc_rejection(
     model: CompartmentModel,
     seed: int,
@@ -114,9 +123,11 @@ def abc_rejection(
     gen.manual_seed(derive_seed(seed, 0))
 
     def launch(batch_index):
-        return _batch(model, gen, observed, batch_size, lo, hi,
-                      derive_seed(seed, 1, batch_index), t_max, steps_per_unit,
-                      distance_fn)
+        with scope("abc_batch_launch", batch_index):
+            count("abc.batches")
+            return _batch(model, gen, observed, batch_size, lo, hi,
+                          derive_seed(seed, 1, batch_index), t_max, steps_per_unit,
+                          distance_fn)
 
     acc_thetas, acc_trajs = [], []
     trials = 0
@@ -124,16 +135,20 @@ def abc_rejection(
     pending = launch(0)
     while n_accepted < n_samples and trials < max_trials:
         thetas_d, sim_d, dist_d = pending
-        mask = (dist_d <= threshold).cpu().numpy()  # the only per-batch sync
+        with scope("abc_mask_sync"):
+            mask = (dist_d <= threshold).cpu().numpy()  # the only per-batch sync
+        count("abc.host_copies")
         trials += batch_size
         n_found = int(mask.sum())
         if n_accepted + n_found < n_samples and trials < max_trials:
             # enqueued before this batch's rows are fetched
             pending = launch(trials // batch_size)
         if n_found:
-            idx = torch.from_numpy(np.nonzero(mask)[0]).to(device)
-            acc_thetas.append(thetas_d[idx].cpu().numpy())
-            acc_trajs.append(sim_d[idx].cpu().numpy())
+            with scope("abc_fetch"):
+                idx = torch.from_numpy(np.nonzero(mask)[0]).to(device)
+                acc_thetas.append(thetas_d[idx].cpu().numpy())
+                acc_trajs.append(sim_d[idx].cpu().numpy())
+            count("abc.host_copies", 2)
             n_accepted += n_found
 
     if n_accepted == 0:

@@ -27,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from .. import profiling
 from ..device import resolve_device, synchronize
 from .configs import (
     ABCConfig,
@@ -218,11 +219,12 @@ def run_abc(cfg: ExperimentConfig, verbose=True, device="cuda"):
     priors = {name: (a.prior_lo, a.prior_hi) for name in model.theta_names}
     synchronize(device)
     t0 = time.time()
-    result = abc_rejection(
-        model, cfg.seed, torch.from_numpy(y).to(device), n_samples=a.n_samples,
-        threshold=a.threshold, priors=priors, batch_size=a.batch_size,
-        steps_per_unit=a.steps_per_unit,
-    )
+    with _profiled(cfg.profile_dir, device, "abc_trace.json"):
+        result = abc_rejection(
+            model, cfg.seed, torch.from_numpy(y).to(device), n_samples=a.n_samples,
+            threshold=a.threshold, priors=priors, batch_size=a.batch_size,
+            steps_per_unit=a.steps_per_unit,
+        )
     elapsed = time.time() - t0
 
     with open(os.path.join(out_root, "posterior.json"), "w") as f:
@@ -322,17 +324,26 @@ def _run_pmmh_segmented(cfg, sampler_fn, model, obs, y, kwargs, out_root, verbos
                       acceptances=state.acceptances, final_state=state)
 
 
-def _profiler(profile_dir, device):
-    """A ``torch.profiler`` context for the sampler (CPU and, on a GPU, CUDA
-    activity), or a null context without ``profile_dir``."""
+@contextlib.contextmanager
+def _profiled(profile_dir, device, trace_name):
+    """With ``profile_dir``, the block under ``torch.profiler`` (CPU and, on
+    a GPU, CUDA activity) and the program's span recording; then writes the
+    Chrome trace as ``profile_dir/trace_name`` and the spans, counters and
+    clock anchor as ``profile_dir/spans.json``.  Without it, nothing."""
     if not profile_dir:
-        return contextlib.nullcontext()
+        yield
+        return
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities)
+    with profiling.recording() as rec, profile(activities=activities) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, trace_name))
+    with open(os.path.join(profile_dir, "spans.json"), "w") as f:
+        json.dump(rec.to_json(), f)
 
 
 def run_experiment(cfg: ExperimentConfig, verbose=True, device="cuda"):
@@ -379,16 +390,12 @@ def run_experiment(cfg: ExperimentConfig, verbose=True, device="cuda"):
                   f"(sd(logZ)={tuned_sd:.2f} {'<=' if met else '>'} {m.auto_particles})"
                   f"{note}", flush=True)
 
-    prof = _profiler(cfg.profile_dir, device)
     synchronize(device)
     t0 = time.time()
-    with prof:
+    with _profiled(cfg.profile_dir, device, "pmmh_trace.json"):
         result = _run_pmmh_segmented(cfg, mcmc.particle_mcmc_chains, model, obs, y_dev,
                                      kwargs, out_root, verbose=verbose)
     elapsed = time.time() - t0
-    if cfg.profile_dir:
-        os.makedirs(cfg.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(cfg.profile_dir, "pmmh_trace.json"))
     total_iters = m.n_chains * m.n_iters
 
     names = list(model.theta_names)
@@ -744,7 +751,10 @@ def main(argv=None):
                     "for many-chain runs)")
     ap.add_argument("--profile", type=str, default=None, metavar="DIR",
                     help="write a torch.profiler Chrome trace of the sampler to "
-                    "DIR/pmmh_trace.json")
+                    "DIR/pmmh_trace.json (DIR/abc_trace.json for ABC) and the "
+                    "program's spans and counters to DIR/spans.json; a span's "
+                    "perf_counter ns + anchor[0][0] - anchor[0][1] is Unix ns, "
+                    "and Unix ns = the trace's baseTimeNanoseconds + ts * 1000")
     ap.add_argument("--multihost", action="store_true",
                     help="join a multi-process group before running (env triple "
                     "EPITPU_COORDINATOR/EPITPU_NUM_PROCESSES/EPITPU_PROCESS_ID, or "

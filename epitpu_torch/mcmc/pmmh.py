@@ -47,7 +47,9 @@ Telemetry gathers the batch and prints on the mesh's first rank.
 Each phase runs in the ``epitpu_torch.profiling.scope`` of epitpu's named
 scope: ``pmmh_init`` (the init search), ``pmmh_scan`` (the row loop) and,
 inside it, ``mh_propose``, ``mh_accept``, ``adapt_welford``; ``path_sample``
-around each filter's ancestral path.
+around each filter's ancestral path.  Two spans of the port's own frame
+them: ``pmmh_call`` a whole ``particle_mcmc_chains`` call, set-up and output
+stacking included, and ``pmmh_row`` each row of the scan, its id the row.
 """
 from __future__ import annotations
 
@@ -61,7 +63,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.base import CompartmentModel
-from ..profiling import scope
+from ..profiling import scope, spanned
 from ..rng import PhiloxStream, derive_seed
 from ..smc.filter import particle_filter
 from ..smc.paths import sample_path
@@ -129,6 +131,7 @@ def default_telemetry(i, accepts, theta, log_z):
               f"log_zeta_mean={float(np.mean(log_z)):.4f}", flush=True)
 
 
+@spanned("pmmh_call")
 def particle_mcmc_chains(
     model: CompartmentModel,
     obs_loglik,
@@ -297,45 +300,46 @@ def particle_mcmc_chains(
 
     with scope("pmmh_scan"):
         for i in range(step + 1, first_row + n_rows):
-            stream = seed_row(i)
-            cov = sigma0
-            if adaptive and i > adapt_start:
-                w_eff = w.pooled(mesh) if pooled_adaptation else w
-                cov = w_eff.covariance(jitter=1e-4)
-            with scope("mh_propose"):
-                theta_prop = propose(theta, cov.expand(n_local, d, d),
-                                     log_s if target_acceptance is not None else None)
-            nonneg = (theta_prop >= 0.0).all(-1)
-            m_theta, o_param, stored = _split_theta(theta_prop, infer_obs_param, obs_param)
-            ll_prop, traj_prop = run_filter(m_theta, o_param, stream)
+            with scope("pmmh_row", i):
+                stream = seed_row(i)
+                cov = sigma0
+                if adaptive and i > adapt_start:
+                    w_eff = w.pooled(mesh) if pooled_adaptation else w
+                    cov = w_eff.covariance(jitter=1e-4)
+                with scope("mh_propose"):
+                    theta_prop = propose(theta, cov.expand(n_local, d, d),
+                                         log_s if target_acceptance is not None else None)
+                nonneg = (theta_prop >= 0.0).all(-1)
+                m_theta, o_param, stored = _split_theta(theta_prop, infer_obs_param, obs_param)
+                ll_prop, traj_prop = run_filter(m_theta, o_param, stream)
 
-            with scope("mh_accept"):
-                log_ratio = ll_prop - ll
-                log_u = mine(torch.log(torch.rand(n_chains, generator=gen, device=device)))
-                ok = nonneg & torch.isfinite(ll_prop)
-                accept = ok & (log_u < log_ratio)
-                theta = torch.where(accept[:, None], stored, theta)
-                ll = torch.where(accept, ll_prop, ll)
-                if traj is not None:
-                    traj = torch.where(accept[:, None, None], traj_prop, traj)
-            if target_acceptance is not None:
-                alpha = torch.where(
-                    ok, torch.exp(torch.clamp(log_ratio, max=0.0)), torch.zeros_like(ll)
-                )
-                if pooled_adaptation:
-                    alpha = all_chains(alpha).mean().expand(n_local)
-                log_s = log_s + i ** -0.66 * (alpha - target_acceptance)
-            with scope("adapt_welford"):
-                w = w.update(theta)
-            accepts = accepts + accept.to(torch.int32)
-            step = i
-            if log_every and i % log_every == 0:
-                batch = [all_chains(t).cpu().numpy() for t in (accepts, theta, ll)]
-                if mesh is None or mesh.is_primary:
-                    (telemetry_fn or default_telemetry)(i, *batch)
-            out_theta.append(theta)
-            out_ll.append(ll)
-            out_traj.append(traj)
+                with scope("mh_accept"):
+                    log_ratio = ll_prop - ll
+                    log_u = mine(torch.log(torch.rand(n_chains, generator=gen, device=device)))
+                    ok = nonneg & torch.isfinite(ll_prop)
+                    accept = ok & (log_u < log_ratio)
+                    theta = torch.where(accept[:, None], stored, theta)
+                    ll = torch.where(accept, ll_prop, ll)
+                    if traj is not None:
+                        traj = torch.where(accept[:, None, None], traj_prop, traj)
+                if target_acceptance is not None:
+                    alpha = torch.where(
+                        ok, torch.exp(torch.clamp(log_ratio, max=0.0)), torch.zeros_like(ll)
+                    )
+                    if pooled_adaptation:
+                        alpha = all_chains(alpha).mean().expand(n_local)
+                    log_s = log_s + i ** -0.66 * (alpha - target_acceptance)
+                with scope("adapt_welford"):
+                    w = w.update(theta)
+                accepts = accepts + accept.to(torch.int32)
+                step = i
+                if log_every and i % log_every == 0:
+                    batch = [all_chains(t).cpu().numpy() for t in (accepts, theta, ll)]
+                    if mesh is None or mesh.is_primary:
+                        (telemetry_fn or default_telemetry)(i, *batch)
+                out_theta.append(theta)
+                out_ll.append(ll)
+                out_traj.append(traj)
 
     thetas = torch.stack(out_theta, dim=1)
     if store_trajectories:

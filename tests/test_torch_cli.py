@@ -281,6 +281,43 @@ def test_main_on_cpu_writes_layout_and_cuda_without_gpu_raises(tmp_path, monkeyp
             main(argv + ["--device", "cuda"])
 
 
+@pytest.mark.parametrize("algo", ["pmmh", "abc"])
+def test_profile_writes_the_programs_spans_beside_the_trace(tmp_path, monkeypatch, capsys, algo):
+    """``--profile DIR`` writes the Chrome trace and ``spans.json``: the
+    spans, counters and clock anchor, each span on its trace twin within
+    2 ms through the anchor."""
+    monkeypatch.chdir(tmp_path)
+    prof = tmp_path / "prof"
+    if algo == "pmmh":
+        assert main(["--preset", "sir_underreported", "--iters", "3", "--chains", "2",
+                     "--particles", "8", "--no-plots", "--profile", str(prof),
+                     "--device", "cpu"]) == 0
+    else:
+        cfg = PRESETS["sir_abc"]()
+        cfg.abc.n_samples, cfg.abc.threshold, cfg.abc.batch_size = 4, 400.0, 128
+        cfg.make_plots, cfg.profile_dir = False, str(prof)
+        run_experiment(cfg, verbose=False, device="cpu")
+    with open(prof / "spans.json") as f:
+        doc = json.load(f)
+    with open(prof / f"{algo}_trace.json") as f:
+        trace = json.load(f)
+    (w0, p0), (w1, p1) = doc["anchor"]
+    assert doc["fields"] == ["name", "start_ns", "end_ns", "parent", "id"]
+    names = [s[0] for s in doc["spans"]]
+    twins = sorted(trace["baseTimeNanoseconds"] + float(e["ts"]) * 1e3
+                   for e in trace["traceEvents"]
+                   if e.get("cat") == "user_annotation" and e.get("name") == f"{algo}_call")
+    calls = [w0 + (s[1] - p0) * (w1 - w0) / (p1 - p0) for s in doc["spans"]
+             if s[0] == f"{algo}_call"]
+    assert len(calls) == len(twins) == 1 and abs(calls[0] - twins[0]) <= 2e6
+    if algo == "pmmh":
+        assert [s[4] for s in doc["spans"] if s[0] == "pmmh_row"] == [1, 2]
+        assert names.count("pf_weight") == 3 * 14 and doc["counters"] == {}
+    else:
+        assert doc["counters"]["abc.batches"] == names.count("abc_batch_launch") >= 1
+        assert doc["counters"]["abc.host_copies"] >= 3
+
+
 def test_chain_result_slices_every_leaf():
     from epitpu_torch.cli import chain_result
 
