@@ -25,6 +25,16 @@ Phases, one or more lines each on stdout:
               its surface and forecast, the app's 30 lanes x 31 units), at
               1, 31, 33 and 513 lanes for SIR, SEIR and K = 3, 5, 8, and
               every other K = 1..8 subgroup instantiation at 300 lanes;
+  3b. weight_kernel  the weighting kernel (csrc/obs_binomial.cu) against
+              its plain twin on the card, bit for bit: edge cases (k = 0,
+              k = n, n = 0, k > n, k < 0, NaN states; p = 0, 1, clamped
+              near 0 and 1, one per chain; C = 1 to 60) and the tau-leap's
+              own states at both PMMH cells' shapes (2,048 x 16 and 32 x
+              4,096, every filter step), min and sum; its ms from idle and
+              back to back beside the twin's, the bound and its share; a
+              production-preset PMMH run (40 rows): one launch a filter
+              step, init search included, and its chains equal to the same
+              seed's run on the plain weighting bit for bit;
   4. filter   particle-filter logZ at the truth on the card against the
               host (512 replicates, N=16): SIR on the committed dataset,
               SEIR, sir_subgroups and sir_subgroups2 on the port's
@@ -175,7 +185,7 @@ from epitpu_torch.io import (dataset_from_csv, load_pmmh_checkpoint, load_pmmh_r
 from epitpu_torch.mcmc import forecast_from_result, particle_mcmc, particle_mcmc_chains
 from epitpu_torch.models import make_model, seir_model, sir_model, sir_subgroups_model
 from epitpu_torch.observe import get_observation_model
-from epitpu_torch.ops import _build, rate_trace, tauleap_cuda
+from epitpu_torch.ops import _build, obs_cuda, rate_trace, tauleap_cuda
 from epitpu_torch.rng import PhiloxStream
 from epitpu_torch.sim import advance, simulate
 from epitpu_torch.smc import particle_filter
@@ -292,11 +302,12 @@ def on_main_path(name, families, fn, *args):
     """Run one main path with the launch counts set to 0 before it; fail if
     a kernel family it must use was never launched."""
     tauleap_cuda.reset_launch_counts()
+    weight0 = obs_cuda.WEIGHT_LAUNCHES
     t0 = time.perf_counter()
     out = fn(*args)
     torch.cuda.synchronize()
     PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
-    counts = dict(tauleap_cuda.FAMILY_LAUNCHES)
+    counts = dict(tauleap_cuda.FAMILY_LAUNCHES, obs_weight=obs_cuda.WEIGHT_LAUNCHES - weight0)
     for f in families:
         check(counts[f] > 0, f"main path {name} never launched the {f} kernel")
     PATH_LAUNCHES[name] = counts
@@ -315,6 +326,9 @@ def phase_device():
 
 
 def _instantiation(mangled):
+    m = re.search(r"obs_binomial_kernelILi(\d+)ELb([01])E", mangled)
+    if m:
+        return f"obs_binomial<{m.group(1)},{'min' if m.group(2) == '1' else 'sum'}>"
     m = re.search(r"SirSubgroupsILi(\d+)ELb([01])E", mangled)
     if m:
         return f"SirSubgroups<{m.group(1)},{'T' if m.group(2) == '1' else 'F'}>"
@@ -540,6 +554,204 @@ def bound(model, b, t_max, theta_rows, final_only, work, n_sub=20):
     t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
     by = "operations" if t_ops >= t_bytes else "bytes"
     return 1e3 * max(t_ops, t_bytes), by, ops, nbytes
+
+
+# ---- the weighting kernel (csrc/obs_binomial.cu) ----------------------------
+
+WEIGHT_CELLS = ((2048, 16), (32, 4096))  # the benchmark's PMMH cells: chains x particles
+WEIGHT_PMMH_ITERS = 40  # the same-seed production runs, kernel against plain weighting
+HBM_BYTES_PER_S, OPS_PER_S = 3.35e12, 33.5e12  # the H100's bounds, PERF.md section 6
+
+
+def _plain_binomial(combine="min"):
+    """The plain weighting on the card: the twin, about 150 elementwise launches."""
+    from epitpu_torch.observe.models import _combine, binom_logpmf
+
+    def log_weight(y, x_obs, p):
+        return _combine(binom_logpmf(y, x_obs, p), combine)
+
+    return log_weight
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN equal to NaN (its payload aside)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return bool(a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+                and torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+def _weight_edges(gen):
+    """(label, y, x, p) cases at the edges of binom_logpmf: k = 0, k = n,
+    n = 0, k > n, k < 0, NaN states; p = 0, 1, clamped near 0 and 1, and a p
+    per chain with some chains at 0 or 1; C = 1, 3, 4, 6, 24, 36, 60; and
+    chains whose every compartment is finite, where a sum's order shows."""
+    cases = []
+    for c in (1, 3, 4, 6, 24, 36, 60):
+        x = torch.floor(10 ** (torch.rand((8, 64, c), generator=gen, device=DEV) * 4))
+        y = torch.floor(x[0, 0] * 0.1)
+        y[0] = 0.0
+        x[0, :4] = 0.0  # n = 0 (k = 0 for c = 0)
+        x[1, :8, :] = y  # k = n
+        x[2, :8, :] = y - 1.0  # k > n
+        x[3, 0, 0] = float("nan")
+        x[3, 1, :] = float("nan")
+        x[4, :8] = torch.floor(y * 0.5)
+        x[5:] = y + torch.floor(y * 9 + torch.rand((3, 64, c), generator=gen, device=DEV) * 100)
+        per_chain = torch.tensor([0.1, 0.0, 1.0, 1e-12, 1.0 - 1e-9, 0.5, 0.9, float("nan")],
+                                 device=DEV)
+        y_neg = y.clone()
+        y_neg[-1] = -1.0  # k < 0
+        for label, p in (("p=0.1", torch.tensor(0.1, device=DEV)),
+                         ("p=0", torch.tensor(0.0, device=DEV)),
+                         ("p=1", torch.tensor(1.0, device=DEV)),
+                         ("p=1e-12", torch.tensor(1e-12, device=DEV)),
+                         ("p=1-1e-9", torch.tensor(1.0 - 1e-9, device=DEV)),
+                         ("p per chain", per_chain[:, None, None])):
+            cases.append((f"C={c} {label}", y, x, p))
+        cases.append((f"C={c} k<0", y_neg, x, torch.tensor(0.1, device=DEV)))
+    return cases
+
+
+def _weight_states(model, chains, n, y, gen):
+    """The tau-leap's own states at the filter's shape: the initial cloud and
+    each of the T - 1 steps after it (no resampling), one row of y each."""
+    from epitpu_torch.sim.tauleap import advance
+
+    x = model.init_fn(gen, (chains, n), POP, 20.0).to(torch.float32).contiguous()
+    theta = torch.tensor(TRUTH, device=DEV).expand(chains, 2)[:, None, :]
+    stream = PhiloxStream(SEED + 7, DEV)
+    for t in range(y.shape[0] - 1):
+        yield y[t], x
+        x = advance(model, x, theta, stream, 20, "fast", gen)
+
+
+def _weight_pmmh(model, obs, y, plain):
+    """The production preset at WEIGHT_PMMH_ITERS rows with ``obs`` and with
+    the plain weighting ``plain`` on one seed; the kernel's launches counted
+    in a recording of the spans."""
+    from epitpu_torch import profiling
+
+    cfg = PRESETS["production"]()
+    cfg.seed = SEED
+    cfg.mcmc.n_iters = WEIGHT_PMMH_ITERS
+    kw, _ = pmmh_arguments(cfg, model, obs, y, DEV)
+    out = {}
+    for name, fn in (("kernel", obs), ("plain", plain)):
+        torch.cuda.synchronize()
+        launches0 = obs_cuda.WEIGHT_LAUNCHES
+        t0 = time.perf_counter()
+        with profiling.recording() as rec:
+            res = particle_mcmc_chains(model, fn, y.to(DEV), **kw)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        names = [s.name for s in rec.spans]
+        out[name] = dict(res=res, wall=wall, launches=obs_cuda.WEIGHT_LAUNCHES - launches0,
+                         counter=rec.counters.get("obs.weight_launches", 0),
+                         steps=names.count("pf_weight"), filters=names.count("pf_scan"))
+    return kw, out
+
+
+def phase_weight_kernel(model, obs, y):
+    """csrc/obs_binomial.cu against its twin on the card, bit for bit: edge
+    cases, and the tau-leap's states at both PMMH cells' shapes with both
+    combines; its time from idle and back to back beside the twin's and the
+    bound; the launches of a production-preset PMMH run; and that run's
+    chains equal to the same seed's run on the plain weighting."""
+    from epitpu_torch.observe.models import make_binomial_obs
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    kernels = {m: make_binomial_obs(m) for m in ("min", "sum")}
+    plains = {m: _plain_binomial(m) for m in ("min", "sum")}
+    edges = _weight_edges(gen)
+    for label, yy, x, p in edges:
+        for m in ("min", "sum"):
+            got, want = kernels[m](yy, x, p), plains[m](yy, x, p)
+            check(_same_bits(got, want), f"weight kernel {label} {m}: differs from the twin "
+                  f"at {int((got != want).sum())} of {got.numel()} particles")
+        # the plain route's and the exact sampler's final states are strided views
+        strided = torch.stack([x, x], dim=2)[:, :, -1]
+        check(_same_bits(kernels["min"](yy, strided, p), kernels["min"](yy, x, p)),
+              f"weight kernel {label}: a strided x_obs differs from its contiguous copy")
+    print(f"weight_kernel: edges == twin bit for bit, min and sum: {len(edges)} cases "
+          f"(C = 1, 3, 4, 6, 24, 36, 60; k = 0, k = n, n = 0, k > n, k < 0, NaN; p = 0, 1, "
+          f"1e-12, 1 - 1e-9, per chain); a strided x_obs == its contiguous copy", flush=True)
+    rows = []
+    for chains, n in WEIGHT_CELLS:
+        steps = 0
+        for yt, x in _weight_states(model, chains, n, y.to(DEV), gen):
+            for m in ("min", "sum"):
+                check(_same_bits(kernels[m](yt, x, torch.tensor(0.1, device=DEV)),
+                                 plains[m](yt, x, torch.tensor(0.1, device=DEV))),
+                      f"weight kernel at {chains} x {n}, step {steps}, {m}: differs from the twin")
+            steps += 1
+        p = torch.tensor(0.1, device=DEV)
+        particles = chains * n
+        c = x.shape[-1]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            plains["min"](yt, x, p)
+            torch.cuda.synchronize()
+        twin_ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        ms = cuda_ms(lambda: kernels["min"](yt, x, p), reps=20)
+        b2b = cuda_ms(lambda: [kernels["min"](yt, x, p) for _ in range(10)], reps=5) / 10
+        plain_ms = cuda_ms(lambda: plains["min"](yt, x, p), reps=5)
+        # the kernel's own device time (the events above also hold the host's
+        # dispatch of each call), and the host's time a call
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                kernels["min"](yt, x, p)
+            torch.cuda.synchronize()
+        device_us = float(np.median([e.time_range.elapsed_us() for e in prof.events()
+                                     if "obs_binomial_kernel" in e.name] or [float("nan")]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            kernels["min"](yt, x, p)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        ops = twin_ops * particles * c
+        nbytes = particles * (4 * c + 4)
+        bound_ops, bound_bytes = ops / OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(bound_ops, bound_bytes)
+        row = dict(shape=f"{chains} x {n} x {c}", particles=particles, steps_checked=steps,
+                   ms=ms, b2b_ms=b2b, device_us=device_us, host_us=host_us,
+                   plain_ms=plain_ms, twin_launches=twin_ops,
+                   bound_ms=bound_ms, bound_by="ops" if bound_ops >= bound_bytes else "bytes",
+                   bound_share=bound_ms / ms, bound_share_b2b=bound_ms / b2b,
+                   bound_share_device=bound_ms * 1e3 / device_us)
+        rows.append(row)
+        print(f"weight_kernel[{chains} x {n}]: == twin bit for bit at {steps} filter steps of "
+              f"the tau-leap's states, min and sum; kernel {ms:.4f} ms one call, {b2b:.4f} ms "
+              f"back to back (events around the Python call), {device_us:.2f} us on the device "
+              f"(profiler, median of 20), {host_us:.2f} us of host a call; twin {plain_ms:.4f} "
+              f"ms ({twin_ops} launches); bound {bound_ms:.5f} ms by {row['bound_by']} (ops "
+              f"{bound_ops:.5f}, bytes {bound_bytes:.5f}); share of bound "
+              f"{100 * row['bound_share']:.2f} % one call, {100 * row['bound_share_b2b']:.2f} % "
+              f"back to back, {100 * row['bound_share_device']:.2f} % of the device time; "
+              f"SM clock {_sm_clock()}",
+              flush=True)
+    kw, runs = _weight_pmmh(model, obs, y, plains["min"])
+    k, pl = runs["kernel"], runs["plain"]
+    t_len = y.shape[0]
+    check(k["launches"] == k["counter"] == k["steps"] == (t_len - 1) * k["filters"],
+          f"weight launches {k['launches']}, counter {k['counter']}, filter steps {k['steps']}, "
+          f"filters {k['filters']} x {t_len - 1}: not one launch a filter step")
+    check(pl["launches"] == 0 and pl["steps"] == k["steps"],
+          f"plain run launched {pl['launches']} and made {pl['steps']} filter steps")
+    for key in ("thetas", "log_likelihoods"):
+        check(_same_bits(getattr(k["res"], key), getattr(pl["res"], key)),
+              f"production PMMH on the kernel: {key} differ from the plain weighting's")
+    rate = {name: kw["n_chains"] * kw["n_iters"] / r["wall"] for name, r in runs.items()}
+    print(f"weight_kernel[pmmh]: production preset, {kw['n_chains']} chains x "
+          f"{kw['n_particles']} x {kw['n_iters']} rows, same seed: thetas and log-likelihoods "
+          f"== the plain weighting's bit for bit; {k['launches']} launches == "
+          f"obs.weight_launches {k['counter']} == {k['steps']} filter steps ({k['filters']} "
+          f"filters x {t_len - 1}, init search included); {rate['kernel']:.1f} iters/s against "
+          f"{rate['plain']:.1f} on the plain weighting", flush=True)
+    return dict(rows=rows, pmmh_launches=k["launches"], pmmh_filter_steps=k["steps"],
+                iters_per_s=rate["kernel"], plain_iters_per_s=rate["plain"])
 
 
 def _sm_clock():
@@ -2272,6 +2484,29 @@ def kernel_entries(rows):
     return entries
 
 
+def weight_entry(weight):
+    """The weighting kernel's entry: its 2,048 x 16 case as the headline,
+    the 32 x 4,096 case beside it."""
+    main = weight["rows"][0]
+    return {
+        "name": "obs_binomial_kernel",
+        "route": "cuda",
+        "kernel_route": "hand",
+        "source": "epitpu_torch/csrc/obs_binomial.cu",
+        "replaces": None,  # epitpu leaves epitpu/observe/models.py:28-97 to XLA's fusion
+        "launches": sum(p.get("obs_weight", 0) for p in PATH_LAUNCHES.values()),
+        "launches_by_path": {n: p["obs_weight"] for n, p in PATH_LAUNCHES.items()
+                             if p.get("obs_weight")},
+        "max_abs_err": 0.0,  # bit for bit
+        **{key: main[key] for key in ("ms", "b2b_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "bound_share")},
+        "library_ms": None,  # no single PyTorch call computes the binomial weight
+        "cases": weight["rows"],
+        "pmmh_launches": weight["pmmh_launches"],
+        "pmmh_filter_steps": weight["pmmh_filter_steps"],
+    }
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2284,6 +2519,7 @@ def main():
     model = sir_model()
     obs = get_observation_model("binomial")
     y = dataset_from_csv(os.path.join(DATA, "dataset.csv"), DEV)
+    weight = timed("weight_kernel", phase_weight_kernel, model, obs, y)
     timed("filter", phase_filter, obs, y)
     prod = on_main_path("pmmh", ["sir"], phase_pmmh, model, obs, y)
     on_main_path("forecast", ["sir"], phase_forecast, model, obs, y)
@@ -2318,13 +2554,16 @@ def main():
     timed("cli-multihost", phase_cli_multihost)
     timed("multichip[1 card]", phase_multichip)
     routes = {name: {"hand": sum(p.get(f, 0) for f in tauleap_cuda.FAMILIES),
-                     "generated": p.get("generated", 0), "plain": p.get("plain", 0)}
+                     "generated": p.get("generated", 0), "plain": p.get("plain", 0),
+                     "obs_weight": p.get("obs_weight", 0)}
               for name, p in PATH_LAUNCHES.items()}
-    print(f"routes: launches (plain: calls of the twin on the card) per main path: "
+    print(f"routes: launches (plain: calls of the twin on the card; obs_weight: the "
+          f"weighting kernel's) per main path: "
           f"{json.dumps(routes)}", flush=True)
     print(f"phase seconds (host clock): {json.dumps(PHASE_SECONDS)}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s on {smi}", flush=True)
-    print(json.dumps({"kernels": kernel_entries(rows), "routes": routes}), flush=True)
+    print(json.dumps({"kernels": kernel_entries(rows) + [weight_entry(weight)],
+                      "routes": routes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

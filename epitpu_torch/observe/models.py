@@ -6,12 +6,21 @@
 broadcasts against ``x_obs`` (one reporting probability per chain).
 ``combine="min"`` is the reference's min-over-compartments weight;
 ``"sum"`` the product of likelihoods.
+
+The binomial weight runs by the device of ``x_obs``: on the card one launch
+of the hand-written kernel ``epitpu_torch/csrc/obs_binomial.cu``
+(``epitpu_torch.ops.obs_cuda``; ``x_obs`` ``[chains, N, obs_dim]``,
+``param`` a 0-d or ``[chains, 1, 1]`` tensor, as the filter passes them), on
+the CPU its plain twin, ``binom_logpmf`` and the combine, which the kernel
+equals bit for bit on the card.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..ops.obs_cuda import binomial_log_weight
 
 
 def _stirling_delta(x):
@@ -74,10 +83,16 @@ def _combine(logs, mode):
 
 
 def make_binomial_obs(combine="min"):
-    """Under-reported counts: Y[c] ~ Binomial(X[c], p)."""
+    """Under-reported counts: Y[c] ~ Binomial(X[c], p).  A CUDA ``x_obs``
+    launches the kernel, a CPU one runs the twin; any other input raises."""
 
     def log_weight(y, x_obs, p):
-        return _combine(binom_logpmf(y, x_obs, p), combine)
+        device = x_obs.device.type if isinstance(x_obs, torch.Tensor) else None
+        if device == "cuda":
+            return binomial_log_weight(y, x_obs, p, combine)
+        if device == "cpu":
+            return _combine(binom_logpmf(y, x_obs, p), combine)
+        raise ValueError(f"no binomial observation weight for x_obs on {device or type(x_obs)}")
 
     return log_weight
 

@@ -1,8 +1,9 @@
 """Builds the package's CUDA sources into shared libraries at first use.
 
 ``nvcc`` compiles ``epitpu_torch/csrc/tauleap.cu`` (the kernel template of
-``tauleap_kernel.cuh`` on the hand-written functors) for Hopper
-(``sm_90a``) into ``epitpu_torch/_build/libepitpu_kernels-<hash>.so``, a
+``tauleap_kernel.cuh`` on the hand-written functors) and
+``obs_binomial.cu`` (the binomial observation weight) for Hopper
+(``sm_90a``) into one ``epitpu_torch/_build/libepitpu_kernels-<hash>.so``, a
 plain C interface loaded with ``ctypes``; the file name carries a hash of
 the sources and the flags, so an edited source builds anew.  No PyTorch
 headers are compiled, which keeps the build to seconds.
@@ -34,7 +35,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("tauleap.cu", "tauleap_kernel.cuh")
+SOURCES = ("tauleap.cu", "tauleap_kernel.cuh", "obs_binomial.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
@@ -76,7 +77,8 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    BUILD_INFO.update(_compile(nvcc_command(find_nvcc(), [CSRC / SOURCES[0]], tmp), tmp, out))
+    units = [CSRC / name for name in SOURCES if name.endswith(".cu")]
+    BUILD_INFO.update(_compile(nvcc_command(find_nvcc(), units, tmp), tmp, out))
     return out
 
 
@@ -104,6 +106,16 @@ EPI_TRAJ_ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_float,  # t_max, n_sub, dt
     ctypes.c_int,  # final_only
     ctypes.c_int, ctypes.c_int, ctypes.c_int,  # group, threads per block, blocks
+    ctypes.c_void_p,  # cudaStream_t
+)
+
+
+# ctypes signature of csrc/obs_binomial.cu:epi_obs_binomial, in its parameter order
+EPI_OBS_BINOMIAL_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # y, x, p
+    ctypes.c_longlong, ctypes.c_void_p,  # p's stride between chains, out
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,  # rows, rows a chain, compartments
+    ctypes.c_int,  # combine: 0 min, 1 sum
     ctypes.c_void_p,  # cudaStream_t
 )
 
@@ -189,5 +201,7 @@ def load_library():
         lib = ctypes.CDLL(str(build()))
         lib.epi_traj.argtypes = list(EPI_TRAJ_ARGTYPES)
         lib.epi_traj.restype = ctypes.c_int
+        lib.epi_obs_binomial.argtypes = list(EPI_OBS_BINOMIAL_ARGTYPES)
+        lib.epi_obs_binomial.restype = ctypes.c_int
         _LIB = lib
     return _LIB

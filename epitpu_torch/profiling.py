@@ -59,8 +59,9 @@ PHASES = (
 # enqueue of one candidate batch (id: the batch), the accept mask's copy to
 # the host, the copy of the accepted rows
 SPANS = ("pmmh_call", "pmmh_row", "abc_call", "abc_batch_launch", "abc_mask_sync", "abc_fetch")
-# abc_rejection's candidate batches, and its blocking device-to-host copies
-COUNTERS = ("abc.batches", "abc.host_copies")
+# abc_rejection's candidate batches, and its blocking device-to-host copies;
+# launches of the binomial observation kernel (epitpu_torch/ops/obs_cuda.py)
+COUNTERS = ("abc.batches", "abc.host_copies", "obs.weight_launches")
 
 NULL_SCOPE = contextlib.nullcontext()
 

@@ -8,8 +8,10 @@ p-1, so ``Y[T-1]`` never enters the likelihood, and
 ``logZ += logsumexp(lw + logw)`` with normalized carried ``lw``).
 
 Propagation is ``epitpu_torch.sim.tauleap.advance``: on the card one launch
-of the tau-leap kernel per filter step for all chains and particles.
-Weighting, log-sum-exp and resampling are plain torch.  Each phase runs in
+of the tau-leap kernel per filter step for all chains and particles.  The
+binomial weighting is one launch of its kernel a step on the card
+(``epitpu_torch.observe.make_binomial_obs``); log-sum-exp and resampling
+are plain torch.  Each phase runs in
 the ``epitpu_torch.profiling.scope`` of epitpu's named scope (``pf_init``,
 ``pf_scan`` and, inside it, ``pf_weight``, ``pf_loglik``, ``pf_resample``,
 ``pf_propagate``).
