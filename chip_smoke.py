@@ -35,6 +35,18 @@ Phases, one or more lines each on stdout:
               production-preset PMMH run (40 rows): one launch a filter
               step, init search included, and its chains equal to the same
               seed's run on the plain weighting bit for bit;
+  3c. loglik_kernel  the likelihood update (csrc/pf_loglik.cu) against its
+              plain twin on the card, bit for bit: rows of N = 1 to 32,768
+              (1, 32 and 2,048 rows; rows all -inf, with one finite entry,
+              a NaN, a +inf, an empty carry), both forms; a row's result
+              the same among 1, 7 or all rows; both PMMH cells' shapes
+              over the filter steps of K4's states and the weighting
+              kernel's log-weights; its ms from idle and back to back, its
+              device us from the profiler, host us a call, the twin's ms,
+              the bound (12 bytes a particle) and its share, registers and
+              stack; a production-preset PMMH run (40 rows): one launch a
+              filter step, and its chains equal to the same seed's run on
+              the twin bit for bit;
   4. filter   particle-filter logZ at the truth on the card against the
               host (512 replicates, N=16): SIR on the committed dataset,
               SEIR, sir_subgroups and sir_subgroups2 on the port's
@@ -185,7 +197,7 @@ from epitpu_torch.io import (dataset_from_csv, load_pmmh_checkpoint, load_pmmh_r
 from epitpu_torch.mcmc import forecast_from_result, particle_mcmc, particle_mcmc_chains
 from epitpu_torch.models import make_model, seir_model, sir_model, sir_subgroups_model
 from epitpu_torch.observe import get_observation_model
-from epitpu_torch.ops import _build, obs_cuda, rate_trace, tauleap_cuda
+from epitpu_torch.ops import _build, loglik_cuda, obs_cuda, rate_trace, tauleap_cuda
 from epitpu_torch.rng import PhiloxStream
 from epitpu_torch.sim import advance, simulate
 from epitpu_torch.smc import particle_filter
@@ -302,12 +314,13 @@ def on_main_path(name, families, fn, *args):
     """Run one main path with the launch counts set to 0 before it; fail if
     a kernel family it must use was never launched."""
     tauleap_cuda.reset_launch_counts()
-    weight0 = obs_cuda.WEIGHT_LAUNCHES
+    weight0, loglik0 = obs_cuda.WEIGHT_LAUNCHES, loglik_cuda.LOGLIK_LAUNCHES
     t0 = time.perf_counter()
     out = fn(*args)
     torch.cuda.synchronize()
     PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
-    counts = dict(tauleap_cuda.FAMILY_LAUNCHES, obs_weight=obs_cuda.WEIGHT_LAUNCHES - weight0)
+    counts = dict(tauleap_cuda.FAMILY_LAUNCHES, obs_weight=obs_cuda.WEIGHT_LAUNCHES - weight0,
+                  pf_loglik=loglik_cuda.LOGLIK_LAUNCHES - loglik0)
     for f in families:
         check(counts[f] > 0, f"main path {name} never launched the {f} kernel")
     PATH_LAUNCHES[name] = counts
@@ -329,6 +342,9 @@ def _instantiation(mangled):
     m = re.search(r"obs_binomial_kernelILi(\d+)ELb([01])E", mangled)
     if m:
         return f"obs_binomial<{m.group(1)},{'min' if m.group(2) == '1' else 'sum'}>"
+    m = re.search(r"loglik_(small|rows)ILi(\d+)ELb([01])E", mangled)
+    if m:
+        return f"loglik_{m.group(1)}<{m.group(2)},{'carry' if m.group(3) == '1' else 'resample'}>"
     m = re.search(r"SirSubgroupsILi(\d+)ELb([01])E", mangled)
     if m:
         return f"SirSubgroups<{m.group(1)},{'T' if m.group(2) == '1' else 'F'}>"
@@ -752,6 +768,184 @@ def phase_weight_kernel(model, obs, y):
           f"{rate['plain']:.1f} on the plain weighting", flush=True)
     return dict(rows=rows, pmmh_launches=k["launches"], pmmh_filter_steps=k["steps"],
                 iters_per_s=rate["kernel"], plain_iters_per_s=rate["plain"])
+
+
+# ---- the likelihood update (csrc/pf_loglik.cu) --------------------------------
+
+LOGLIK_SIZES = (1, 2, 15, 16, 17, 31, 32, 33, 64, 513, 1000, 4096, 8191, 8192, 8193, 20000,
+                32768)
+LOGLIK_BYTES = 12  # a particle, carry form: read logw and lw, write lw'
+
+
+def _loglik_inputs(rows, n, gen):
+    """(logw, log_z, lw) on the card: log-weights with some -inf, a running
+    log-likelihood, normalized carried log-weights; from 5 rows, rows all
+    -inf, with one finite entry, a NaN, a +inf, and an empty carry."""
+    logw = torch.randn((rows, n), generator=gen, device=DEV) * 4.0 - 12.0
+    logw[torch.rand((rows, n), generator=gen, device=DEV) < 0.05] = -math.inf
+    raw = torch.randn((rows, n), generator=gen, device=DEV) * 2.0
+    lw = raw - torch.logsumexp(raw, -1, keepdim=True)
+    log_z = -100.0 * torch.rand(rows, generator=gen, device=DEV)
+    if rows >= 5:
+        logw[:2] = -math.inf
+        logw[1, n // 2] = -3.25
+        logw[2, n - 1] = math.nan
+        logw[3, 0] = math.inf
+        lw[4] = -math.inf
+    return logw, log_z, lw
+
+
+def _loglik_equal(got, want):
+    """(log_z', lw' or None, degen) equal bit for bit."""
+    (z, lw, degen), (z0, lw0, degen0) = got, want
+    return (_same_bits(z, z0) and torch.equal(degen.cpu(), degen0.cpu())
+            and ((lw is None and lw0 is None) or _same_bits(lw, lw0)))
+
+
+def _loglik_pmmh(model, obs, y):
+    """The production preset at WEIGHT_PMMH_ITERS rows on the kernel and on
+    the twin (the filter's entry point patched), one seed; the kernel's
+    launches and the pf_loglik spans of a recording."""
+    from epitpu_torch import profiling
+    from epitpu_torch.smc import filter as pf
+
+    cfg = PRESETS["production"]()
+    cfg.seed = SEED
+    cfg.mcmc.n_iters = WEIGHT_PMMH_ITERS
+    kw, _ = pmmh_arguments(cfg, model, obs, y, DEV)
+    out = {}
+    kernel_update = pf.loglik_update
+    for name, update in (("kernel", kernel_update),
+                         ("twin", loglik_cuda.loglik_update_reference)):
+        pf.loglik_update = update
+        try:
+            torch.cuda.synchronize()
+            launches0 = loglik_cuda.LOGLIK_LAUNCHES
+            t0 = time.perf_counter()
+            with profiling.recording() as rec:
+                res = particle_mcmc_chains(model, obs, y.to(DEV), **kw)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            pf.loglik_update = kernel_update
+        names = [s.name for s in rec.spans]
+        out[name] = dict(res=res, wall=wall, launches=loglik_cuda.LOGLIK_LAUNCHES - launches0,
+                         counter=rec.counters.get("pf.loglik_launches", 0),
+                         steps=names.count("pf_loglik"), filters=names.count("pf_scan"))
+    return kw, out
+
+
+def phase_loglik_kernel(model, obs, y):
+    """csrc/pf_loglik.cu against its twin on the card, bit for bit: rows of
+    every size class in both forms, a row's independence of the others, and
+    both PMMH cells' shapes over the filter steps of K4's states; its time
+    beside the twin's and the bound; the launches of a production-preset
+    PMMH run, and that run's chains equal to the same seed's run on the
+    twin."""
+    twin = loglik_cuda.loglik_update_reference
+    update = loglik_cuda.loglik_update
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    cases = 0
+    for n in LOGLIK_SIZES:
+        for rows in (1, 32, 2048):
+            if rows * n > 2048 * 4096:
+                continue
+            logw, log_z, lw = _loglik_inputs(rows, n, gen)
+            for carry in (None, lw):
+                got = update(logw, log_z, math.log(n), carry)
+                want = twin(logw, log_z, math.log(n), carry)
+                check(_loglik_equal(got, want), f"loglik kernel {rows} x {n} "
+                      f"{'resample' if carry is None else 'carry'}: differs from the twin")
+                cases += 1
+        rows = 2048 if n <= 4096 else 64
+        logw, log_z, lw = _loglik_inputs(rows, n, gen)
+        every = update(logw, log_z, math.log(n), lw)
+        for size, start in ((1, 0), (1, rows - 1), (7, 3), (7, rows - 7)):
+            part = slice(start, start + size)
+            got = update(logw[part].contiguous(), log_z[part], math.log(n), lw[part].contiguous())
+            check(_loglik_equal(got, [t[part] for t in every]),
+                  f"loglik kernel at N = {n}: rows {start}..{start + size} among {rows} differ "
+                  f"from the same rows alone")
+    print(f"loglik_kernel: == twin bit for bit in {cases} cases, both forms (N = "
+          f"{', '.join(map(str, LOGLIK_SIZES))}; 1, 32 and 2,048 rows; rows all -inf, one "
+          f"finite entry, NaN, +inf, an empty carry); rows 1 and 7 alone == among all",
+          flush=True)
+    regs = [part for part in _ptxas_report(_build.BUILD_INFO.get("ptxas", "")).split(", ")
+            if part.startswith("loglik_")]
+    print(f"loglik_kernel: registers/stack bytes/spill-store bytes: {', '.join(regs)}",
+          flush=True)
+    rows_out = []
+    p = torch.tensor(0.1, device=DEV)
+    for chains, n in WEIGHT_CELLS:
+        log_n = math.log(n)
+        lw = torch.full((chains, n), -log_n, device=DEV)
+        log_z = torch.zeros(chains, device=DEV)
+        steps = 0
+        for yt, x in _weight_states(model, chains, n, y.to(DEV), gen):
+            logw = obs(yt, x, p)
+            got, want = update(logw, log_z, log_n, lw), twin(logw, log_z, log_n, lw)
+            check(_loglik_equal(got, want),
+                  f"loglik kernel at {chains} x {n}, step {steps}: differs from the twin")
+            log_z, lw, _ = got
+            steps += 1
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            twin(logw, log_z, log_n, lw)
+            torch.cuda.synchronize()
+        twin_ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        ms = cuda_ms(lambda: update(logw, log_z, log_n, lw), reps=20)
+        b2b = cuda_ms(lambda: [update(logw, log_z, log_n, lw) for _ in range(10)], reps=5) / 10
+        plain_ms = cuda_ms(lambda: twin(logw, log_z, log_n, lw), reps=5)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                update(logw, log_z, log_n, lw)
+            torch.cuda.synchronize()
+        device_us = float(np.median([e.time_range.elapsed_us() for e in prof.events()
+                                     if "loglik_" in e.name] or [float("nan")]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            update(logw, log_z, log_n, lw)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        bound_ms = chains * n * LOGLIK_BYTES / HBM_BYTES_PER_S * 1e3
+        row = dict(shape=f"{chains} x {n}", particles=chains * n, steps_checked=steps, ms=ms,
+                   b2b_ms=b2b, device_us=device_us, host_us=host_us, plain_ms=plain_ms,
+                   twin_launches=twin_ops, bound_ms=bound_ms, bound_by="bytes",
+                   bound_share=bound_ms / ms, bound_share_b2b=bound_ms / b2b,
+                   bound_share_device=bound_ms * 1e3 / device_us)
+        rows_out.append(row)
+        print(f"loglik_kernel[{chains} x {n}]: == twin bit for bit at {steps} filter steps of "
+              f"K4's states (carry form); kernel {ms:.4f} ms one call, {b2b:.4f} ms back to "
+              f"back (events around the Python call), {device_us:.2f} us on the device "
+              f"(profiler, median of 20), {host_us:.2f} us of host a call; twin {plain_ms:.4f} "
+              f"ms ({twin_ops} launches); bound {bound_ms:.5f} ms by bytes ({LOGLIK_BYTES} B a "
+              f"particle at 3.35 TB/s); share of bound {100 * row['bound_share']:.2f} % one "
+              f"call, {100 * row['bound_share_b2b']:.2f} % back to back, "
+              f"{100 * row['bound_share_device']:.2f} % of the device time; SM clock "
+              f"{_sm_clock()}", flush=True)
+    kw, runs = _loglik_pmmh(model, obs, y)
+    k, tw = runs["kernel"], runs["twin"]
+    t_len = y.shape[0]
+    check(k["launches"] == k["counter"] == k["steps"] == (t_len - 1) * k["filters"],
+          f"loglik launches {k['launches']}, counter {k['counter']}, filter steps {k['steps']}, "
+          f"filters {k['filters']} x {t_len - 1}: not one launch a filter step")
+    check(tw["launches"] == 0 and tw["steps"] == k["steps"],
+          f"twin run launched {tw['launches']} and made {tw['steps']} filter steps")
+    for key in ("thetas", "log_likelihoods"):
+        check(_same_bits(getattr(k["res"], key), getattr(tw["res"], key)),
+              f"production PMMH on the loglik kernel: {key} differ from the twin's")
+    rate = {name: kw["n_chains"] * kw["n_iters"] / r["wall"] for name, r in runs.items()}
+    print(f"loglik_kernel[pmmh]: production preset, {kw['n_chains']} chains x "
+          f"{kw['n_particles']} x {kw['n_iters']} rows, same seed: thetas and log-likelihoods "
+          f"== the twin's bit for bit; {k['launches']} launches == pf.loglik_launches "
+          f"{k['counter']} == {k['steps']} filter steps ({k['filters']} filters x {t_len - 1}, "
+          f"init search included); {rate['kernel']:.1f} iters/s against {rate['twin']:.1f} on "
+          f"the twin", flush=True)
+    return dict(rows=rows_out, registers=regs, pmmh_launches=k["launches"],
+                pmmh_filter_steps=k["steps"], iters_per_s=rate["kernel"],
+                plain_iters_per_s=rate["twin"])
 
 
 def _sm_clock():
@@ -2507,6 +2701,30 @@ def weight_entry(weight):
     }
 
 
+def loglik_entry(loglik):
+    """The likelihood-update kernel's entry: its 2,048 x 16 case as the
+    headline, the 32 x 4,096 case beside it."""
+    main = loglik["rows"][0]
+    return {
+        "name": "loglik_kernel",
+        "route": "cuda",
+        "kernel_route": "hand",
+        "source": "epitpu_torch/csrc/pf_loglik.cu",
+        "replaces": None,  # epitpu leaves epitpu/smc/filter.py:208-233 to XLA's fusion
+        "launches": sum(p.get("pf_loglik", 0) for p in PATH_LAUNCHES.values()),
+        "launches_by_path": {n: p["pf_loglik"] for n, p in PATH_LAUNCHES.items()
+                             if p.get("pf_loglik")},
+        "max_abs_err": 0.0,  # bit for bit with the twin
+        **{key: main[key] for key in ("ms", "b2b_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "bound_share")},
+        "library_ms": None,  # torch.logsumexp alone leaves out the update around it
+        "cases": loglik["rows"],
+        "registers": loglik["registers"],
+        "pmmh_launches": loglik["pmmh_launches"],
+        "pmmh_filter_steps": loglik["pmmh_filter_steps"],
+    }
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2520,6 +2738,7 @@ def main():
     obs = get_observation_model("binomial")
     y = dataset_from_csv(os.path.join(DATA, "dataset.csv"), DEV)
     weight = timed("weight_kernel", phase_weight_kernel, model, obs, y)
+    loglik = timed("loglik_kernel", phase_loglik_kernel, model, obs, y)
     timed("filter", phase_filter, obs, y)
     prod = on_main_path("pmmh", ["sir"], phase_pmmh, model, obs, y)
     on_main_path("forecast", ["sir"], phase_forecast, model, obs, y)
@@ -2555,14 +2774,15 @@ def main():
     timed("multichip[1 card]", phase_multichip)
     routes = {name: {"hand": sum(p.get(f, 0) for f in tauleap_cuda.FAMILIES),
                      "generated": p.get("generated", 0), "plain": p.get("plain", 0),
-                     "obs_weight": p.get("obs_weight", 0)}
+                     "obs_weight": p.get("obs_weight", 0), "pf_loglik": p.get("pf_loglik", 0)}
               for name, p in PATH_LAUNCHES.items()}
     print(f"routes: launches (plain: calls of the twin on the card; obs_weight: the "
-          f"weighting kernel's) per main path: "
+          f"weighting kernel's; pf_loglik: the likelihood-update kernel's) per main path: "
           f"{json.dumps(routes)}", flush=True)
     print(f"phase seconds (host clock): {json.dumps(PHASE_SECONDS)}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s on {smi}", flush=True)
-    print(json.dumps({"kernels": kernel_entries(rows) + [weight_entry(weight)],
+    print(json.dumps({"kernels": kernel_entries(rows) + [weight_entry(weight),
+                                                         loglik_entry(loglik)],
                       "routes": routes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

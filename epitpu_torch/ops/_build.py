@@ -1,8 +1,9 @@
 """Builds the package's CUDA sources into shared libraries at first use.
 
 ``nvcc`` compiles ``epitpu_torch/csrc/tauleap.cu`` (the kernel template of
-``tauleap_kernel.cuh`` on the hand-written functors) and
-``obs_binomial.cu`` (the binomial observation weight) for Hopper
+``tauleap_kernel.cuh`` on the hand-written functors), ``obs_binomial.cu``
+(the binomial observation weight) and ``pf_loglik.cu`` (the filter's
+likelihood update) for Hopper
 (``sm_90a``) into one ``epitpu_torch/_build/libepitpu_kernels-<hash>.so``, a
 plain C interface loaded with ``ctypes``; the file name carries a hash of
 the sources and the flags, so an edited source builds anew.  No PyTorch
@@ -35,7 +36,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("tauleap.cu", "tauleap_kernel.cuh", "obs_binomial.cu")
+SOURCES = ("tauleap.cu", "tauleap_kernel.cuh", "obs_binomial.cu", "pf_loglik.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",

@@ -65,9 +65,10 @@ SPANS = ("pmmh_call", "pmmh_row", "abc_call", "abc_batch_launch", "abc_mask_sync
 DIST_SPANS = ("dist_gather",)
 # abc_rejection's candidate batches, and its blocking device-to-host copies;
 # launches of the binomial observation kernel (epitpu_torch/ops/obs_cuda.py);
-# all-gathers over a mesh group, and the bytes of their gathered outputs
+# all-gathers over a mesh group, and the bytes of their gathered outputs;
+# launches of the likelihood-update kernel (epitpu_torch/ops/loglik_cuda.py)
 COUNTERS = ("abc.batches", "abc.host_copies", "obs.weight_launches", "dist.gathers",
-            "dist.gather_bytes")
+            "dist.gather_bytes", "pf.loglik_launches")
 
 NULL_SCOPE = contextlib.nullcontext()
 

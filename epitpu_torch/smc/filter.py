@@ -10,8 +10,10 @@ p-1, so ``Y[T-1]`` never enters the likelihood, and
 Propagation is ``epitpu_torch.sim.tauleap.advance``: on the card one launch
 of the tau-leap kernel per filter step for all chains and particles.  The
 binomial weighting is one launch of its kernel a step on the card
-(``epitpu_torch.observe.make_binomial_obs``); log-sum-exp and resampling
-are plain torch.  Each phase runs in
+(``epitpu_torch.observe.make_binomial_obs``), and so is the likelihood
+update (``epitpu_torch.ops.loglik_cuda.loglik_update``: the log-sum-exp, the
+increment of logZ and the normalized carry, in a fixed order of summation
+that depends on N alone); resampling is plain torch.  Each phase runs in
 the ``epitpu_torch.profiling.scope`` of epitpu's named scope (``pf_init``,
 ``pf_scan`` and, inside it, ``pf_weight``, ``pf_loglik``, ``pf_resample``,
 ``pf_propagate``).
@@ -24,11 +26,12 @@ particle axis, so log-sum-exp, ESS and the ancestors come from the
 unsharded code on ``[chains, N]``, in global particle ids; resampling
 gathers the cloud; and the tau-leap kernel's lane map gives each lane the
 Philox counter of the same particle unsharded.  On the card the rounding
-of a reduction or a cumulative sum along a row follows the number of rows
-(PyTorch splits a row over more blocks when there are fewer rows), so a
-chain shard runs its log-sum-exp, ESS and resampling at the unsharded row
-count, its rows at their global place among every chain's rows.  So the
-gathered result equals the unsharded run's bit for bit.
+of a torch reduction or cumulative sum along a row follows the number of
+rows (PyTorch splits a row over more blocks when there are fewer rows), so a
+chain shard runs its ESS and resampling at the unsharded row count, its rows
+at their global place among every chain's rows; the likelihood update's
+rows depend on nothing but their own values and N.  So the gathered result
+equals the unsharded run's bit for bit.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import Optional
 import torch
 
 from ..models.base import CompartmentModel
+from ..ops.loglik_cuda import loglik_update
 from ..profiling import scope
 from ..sim.samplers import PHILOX_SAMPLERS
 from ..sim.tauleap import advance
@@ -150,9 +154,6 @@ def particle_filter(
     def unsharded_rows(fn, t):
         return at_global_rows(fn, t, c0, n_rows)
 
-    def logsumexp(t):
-        return unsharded_rows(lambda t: torch.logsumexp(t, dim=-1), t)
-
     def resample(t):
         return unsharded_rows(lambda t: resample_particles(resampling, t, generator)[0], t)
 
@@ -167,7 +168,6 @@ def particle_filter(
     scheduled_mode = resample_every > 1
     carry_weights = conditional or scheduled_mode
     iota = torch.arange(n_particles, device=device).expand(chains, n_particles)
-    neg_inf = torch.tensor(-math.inf, device=device)
 
     lw = torch.full((chains, n_particles), -log_n, device=device)
     log_z = torch.zeros(chains, device=device)
@@ -183,22 +183,14 @@ def particle_filter(
                 logw = across(obs_loglik(y[p], model.observe_map(x), obs_param))  # [chains, N]
             if not carry_weights:
                 with scope("pf_loglik"):
-                    step_lse = logsumexp(logw)
-                    step_degen = ~torch.isfinite(step_lse)
-                    log_z = torch.where(step_degen, neg_inf, log_z + step_lse - log_n)
+                    log_z, _, step_degen = loglik_update(logw, log_z, log_n)
                 with scope("pf_resample"):
                     anc = mine(resample(logw))
                     x_res = gather(across(x), anc)
                 lw_next = lw
             else:
                 with scope("pf_loglik"):
-                    s = lw + logw
-                    step_lse = logsumexp(s)
-                    step_degen = ~torch.isfinite(step_lse)
-                    log_z = torch.where(step_degen, neg_inf, log_z + step_lse)
-                    safe_lse = torch.where(step_degen, torch.zeros_like(step_lse), step_lse)
-                    lw_new = torch.where(step_degen[:, None], torch.full_like(s, -log_n),
-                                         s - safe_lse[:, None])
+                    log_z, lw_new, step_degen = loglik_update(logw, log_z, log_n, lw)
                 with scope("pf_resample"):
                     if (p + 1) % resample_every == 0:
                         anc_r = resample(lw_new)

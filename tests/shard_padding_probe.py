@@ -1,12 +1,13 @@
 """What a chain shard's row padding costs (``smc.filter.at_global_rows``: a
-chain shard runs its log-sum-exp, ESS and resampling on every chain's rows,
-so that they round as in the unsharded run).  A helper script, not
+chain shard runs its ESS and resampling on every chain's rows, so that they
+round as in the unsharded run; the likelihood update needs no padding).  A
+helper script, not
 collected by pytest:
 
     python3 tests/shard_padding_probe.py --device cuda --out X.json       # on a card
     python3 tests/shard_padding_probe.py --device cpu --tiny --out X.json # rehearsal
 
-1. ``ops``: the row work of one filter step (log-sum-exp and systematic
+1. ``ops``: the padded row work of one filter step (systematic
    resampling of ``[chains, N]``) on a shard's rows alone and padded to
    every chain's rows, for 1, 2, 4 and 8 chain shards, at the production
    shape (2,048 chains a shard x 16) and at the 2 x 2 mesh's (16 chains a
@@ -87,7 +88,6 @@ def op_times(device, shapes, reps, blocks):
             steps = {}
             for variant, rows in (("alone", _alone), ("padded", filt.at_global_rows)):
                 def step(rows=rows):
-                    rows(lambda u: torch.logsumexp(u, -1), t, c0, n_rows)
                     rows(lambda u: resample_particles("systematic", u, gen)[0], t, c0, n_rows)
 
                 steps[variant] = step

@@ -224,7 +224,8 @@ def test_library_build_compiles_every_cuda_source(monkeypatch, tmp_path):
     _build.build()
     (cmd,) = seen
     units = [a for a in cmd if a.endswith((".cu", ".cuh"))]
-    assert units == [str(_build.CSRC / "tauleap.cu"), str(_build.CSRC / "obs_binomial.cu")]
+    assert units == [str(_build.CSRC / name) for name in
+                     ("tauleap.cu", "obs_binomial.cu", "pf_loglik.cu")]
     assert "--fmad=false" in cmd and "-O3" in cmd and "arch=compute_90a,code=sm_90a" in cmd
 
 

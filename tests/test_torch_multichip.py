@@ -181,13 +181,18 @@ def test_cards_refused_with_fewer_visible_cards(monkeypatch, available):
                                       dict(resample_threshold=0.5)],
                          ids=["every step", "every 4th", "ess below half"])
 def test_sharded_filter_reduces_at_the_unsharded_row_count(monkeypatch, schedule):
-    """On the card the rounding of a row reduction or a row's cumulative sum
-    follows the number of rows (found on four cards: the 2 x 2 mesh's
-    log-likelihoods differed from the unsharded run's in their last bits).
-    Here ``logsumexp``, ``cumsum`` and ``sum`` are made to round by row
-    count (each resampling schedule), and
-    each chain shard of a 2 x 1 mesh (one process, no collective on that
-    axis) must still give the unsharded filter's rows bit for bit."""
+    """On the card the rounding of a torch row reduction or a row's
+    cumulative sum follows the number of rows (found on four cards: the 2 x 2
+    mesh's log-likelihoods differed from the unsharded run's in their last
+    bits).  Here ``logsumexp``, ``cumsum`` and ``sum`` are made to round by
+    row count (each resampling schedule), and each chain shard of a 2 x 1
+    mesh (one process, no collective on that axis) must still give the
+    unsharded filter's rows bit for bit.  The ``cumsum`` and ``sum`` patches
+    guard the resampling's and the ESS's padding to the unsharded rows; the
+    ``logsumexp`` patch no longer reaches ``pf_loglik``, whose update
+    (``ops/loglik_cuda.py``) sums each row in an order fixed by N alone and
+    pads nothing: ``tests/test_torch_loglik.py``'s row-independence tests
+    stand in for it there."""
     from epitpu_torch.dist import Mesh, filter_streams
     from epitpu_torch.models import sir_model
     from epitpu_torch.observe import get_observation_model
