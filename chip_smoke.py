@@ -197,7 +197,7 @@ from epitpu_torch.io import (dataset_from_csv, load_pmmh_checkpoint, load_pmmh_r
 from epitpu_torch.mcmc import forecast_from_result, particle_mcmc, particle_mcmc_chains
 from epitpu_torch.models import make_model, seir_model, sir_model, sir_subgroups_model
 from epitpu_torch.observe import get_observation_model
-from epitpu_torch.ops import _build, loglik_cuda, obs_cuda, rate_trace, tauleap_cuda
+from epitpu_torch.ops import _build, loglik_cuda, rate_trace, tauleap_cuda
 from epitpu_torch.rng import PhiloxStream
 from epitpu_torch.sim import advance, simulate
 from epitpu_torch.smc import particle_filter
@@ -311,16 +311,14 @@ def timed(name, fn, *args):
 
 
 def on_main_path(name, families, fn, *args):
-    """Run one main path with the launch counts set to 0 before it; fail if
-    a kernel family it must use was never launched."""
-    tauleap_cuda.reset_launch_counts()
-    weight0, loglik0 = obs_cuda.WEIGHT_LAUNCHES, loglik_cuda.LOGLIK_LAUNCHES
+    """Run one main path with the launch counts (``_build.LAUNCHES``) set to
+    0 before it; fail if a kernel family it must use was never launched."""
+    _build.LAUNCHES.update(dict.fromkeys(_build.LAUNCHES, 0))
     t0 = time.perf_counter()
     out = fn(*args)
     torch.cuda.synchronize()
     PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
-    counts = dict(tauleap_cuda.FAMILY_LAUNCHES, obs_weight=obs_cuda.WEIGHT_LAUNCHES - weight0,
-                  pf_loglik=loglik_cuda.LOGLIK_LAUNCHES - loglik0)
+    counts = dict(_build.LAUNCHES)
     for f in families:
         check(counts[f] > 0, f"main path {name} never launched the {f} kernel")
     PATH_LAUNCHES[name] = counts
@@ -575,18 +573,8 @@ def bound(model, b, t_max, theta_rows, final_only, work, n_sub=20):
 # ---- the weighting kernel (csrc/obs_binomial.cu) ----------------------------
 
 WEIGHT_CELLS = ((2048, 16), (32, 4096))  # the benchmark's PMMH cells: chains x particles
-WEIGHT_PMMH_ITERS = 40  # the same-seed production runs, kernel against plain weighting
+WEIGHT_PMMH_ITERS = 40  # the same-seed production runs, each kernel against its twin
 HBM_BYTES_PER_S, OPS_PER_S = 3.35e12, 33.5e12  # the H100's bounds, PERF.md section 6
-
-
-def _plain_binomial(combine="min"):
-    """The plain weighting on the card: the twin, about 150 elementwise launches."""
-    from epitpu_torch.observe.models import _combine, binom_logpmf
-
-    def log_weight(y, x_obs, p):
-        return _combine(binom_logpmf(y, x_obs, p), combine)
-
-    return log_weight
 
 
 def _same_bits(a, b):
@@ -642,30 +630,106 @@ def _weight_states(model, chains, n, y, gen):
         x = advance(model, x, theta, stream, 20, "fast", gen)
 
 
-def _weight_pmmh(model, obs, y, plain):
-    """The production preset at WEIGHT_PMMH_ITERS rows with ``obs`` and with
-    the plain weighting ``plain`` on one seed; the kernel's launches counted
-    in a recording of the spans."""
+def _time_against_twin(label, call, twin, event, ops_per_twin_launch, nbytes):
+    """A hand kernel's ``call`` against its twin's on the card: the kernel's
+    ms for one call from idle and back to back (CUDA events around the
+    Python call), its device us (the profiler's events whose name holds
+    ``event``, median of 20), the host's us a call, the twin's ms and device
+    launches, the bound (``ops_per_twin_launch`` operations for each of the
+    twin's launches, ``nbytes`` bytes, at the H100's peaks) and its shares.
+    Prints them after ``label``; returns them."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        twin()
+        torch.cuda.synchronize()
+    twin_ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    ms = cuda_ms(call, reps=20)
+    b2b = cuda_ms(lambda: [call() for _ in range(10)], reps=5) / 10
+    plain_ms = cuda_ms(twin, reps=5)
+    # the kernel's own device time (the events above also hold the host's
+    # dispatch of each call), and the host's time a call
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    device_us = float(np.median([e.time_range.elapsed_us() for e in prof.events()
+                                 if event in e.name] or [float("nan")]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    bound_ops = twin_ops * ops_per_twin_launch / OPS_PER_S * 1e3
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(bound_ops, bound_bytes)
+    row = dict(ms=ms, b2b_ms=b2b, device_us=device_us, host_us=host_us, plain_ms=plain_ms,
+               twin_launches=twin_ops, bound_ms=bound_ms,
+               bound_by="ops" if bound_ops >= bound_bytes else "bytes",
+               bound_share=bound_ms / ms, bound_share_b2b=bound_ms / b2b,
+               bound_share_device=bound_ms * 1e3 / device_us)
+    print(f"{label}; kernel {ms:.4f} ms one call, {b2b:.4f} ms back to back (events around "
+          f"the Python call), {device_us:.2f} us on the device (profiler, median of 20), "
+          f"{host_us:.2f} us of host a call; twin {plain_ms:.4f} ms ({twin_ops} launches); "
+          f"bound {bound_ms:.5f} ms by {row['bound_by']} (ops {bound_ops:.5f}, bytes "
+          f"{bound_bytes:.5f}); share of bound {100 * row['bound_share']:.2f} % one call, "
+          f"{100 * row['bound_share_b2b']:.2f} % back to back, "
+          f"{100 * row['bound_share_device']:.2f} % of the device time; SM clock "
+          f"{_sm_clock()}", flush=True)
+    return row
+
+
+def _pmmh_against_twin(label, model, obs, y, key, phase, module, name, twin):
+    """The production preset at WEIGHT_PMMH_ITERS rows on one seed, on hand
+    kernel ``key`` and on its twin, bound for that run to ``module.name``,
+    the name the program calls the kernel's wrapper by: the kernel's
+    launches (``_build.LAUNCHES[key]``) == its profiling counter == the
+    spans of ``phase``, one a filter step; none on the twin; the two runs'
+    thetas and log-likelihoods equal bit for bit.  Prints them after
+    ``label``; returns the JSON entry's fields."""
     from epitpu_torch import profiling
 
     cfg = PRESETS["production"]()
     cfg.seed = SEED
     cfg.mcmc.n_iters = WEIGHT_PMMH_ITERS
     kw, _ = pmmh_arguments(cfg, model, obs, y, DEV)
-    out = {}
-    for name, fn in (("kernel", obs), ("plain", plain)):
-        torch.cuda.synchronize()
-        launches0 = obs_cuda.WEIGHT_LAUNCHES
-        t0 = time.perf_counter()
-        with profiling.recording() as rec:
-            res = particle_mcmc_chains(model, fn, y.to(DEV), **kw)
+    kernel_wrapper, runs = getattr(module, name), {}
+    for run, wrapper in (("kernel", kernel_wrapper), ("twin", twin)):
+        setattr(module, name, wrapper)
+        try:
             torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        names = [s.name for s in rec.spans]
-        out[name] = dict(res=res, wall=wall, launches=obs_cuda.WEIGHT_LAUNCHES - launches0,
-                         counter=rec.counters.get("obs.weight_launches", 0),
-                         steps=names.count("pf_weight"), filters=names.count("pf_scan"))
-    return kw, out
+            launches0 = _build.LAUNCHES[key]
+            t0 = time.perf_counter()
+            with profiling.recording() as rec:
+                res = particle_mcmc_chains(model, obs, y.to(DEV), **kw)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            setattr(module, name, kernel_wrapper)
+        names = [sp.name for sp in rec.spans]
+        runs[run] = dict(res=res, wall=wall, launches=_build.LAUNCHES[key] - launches0,
+                         counter=rec.counters.get(_build.PROFILED[key], 0),
+                         steps=names.count(phase), filters=names.count("pf_scan"))
+    k, tw = runs["kernel"], runs["twin"]
+    t_len = y.shape[0]
+    check(k["launches"] == k["counter"] == k["steps"] == (t_len - 1) * k["filters"],
+          f"{label}: launches {k['launches']}, counter {k['counter']}, filter steps "
+          f"{k['steps']}, filters {k['filters']} x {t_len - 1}: not one launch a filter step")
+    check(tw["launches"] == 0 and tw["steps"] == k["steps"],
+          f"{label}: the twin's run launched {tw['launches']} and made {tw['steps']} filter "
+          f"steps")
+    for field in ("thetas", "log_likelihoods"):
+        check(_same_bits(getattr(k["res"], field), getattr(tw["res"], field)),
+              f"{label}: production PMMH on the kernel: {field} differ from the twin's")
+    rate = {run: kw["n_chains"] * kw["n_iters"] / r["wall"] for run, r in runs.items()}
+    print(f"{label}[pmmh]: production preset, {kw['n_chains']} chains x {kw['n_particles']} x "
+          f"{kw['n_iters']} rows, same seed: thetas and log-likelihoods == the twin's bit for "
+          f"bit; {k['launches']} launches == {_build.PROFILED[key]} {k['counter']} == "
+          f"{k['steps']} filter steps ({k['filters']} filters x {t_len - 1}, init search "
+          f"included); {rate['kernel']:.1f} iters/s against {rate['twin']:.1f} on the twin",
+          flush=True)
+    return dict(pmmh_launches=k["launches"], pmmh_filter_steps=k["steps"],
+                iters_per_s=rate["kernel"], plain_iters_per_s=rate["twin"])
 
 
 def phase_weight_kernel(model, obs, y):
@@ -674,11 +738,12 @@ def phase_weight_kernel(model, obs, y):
     combines; its time from idle and back to back beside the twin's and the
     bound; the launches of a production-preset PMMH run; and that run's
     chains equal to the same seed's run on the plain weighting."""
-    from epitpu_torch.observe.models import make_binomial_obs
+    from epitpu_torch.observe import models
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
-    kernels = {m: make_binomial_obs(m) for m in ("min", "sum")}
-    plains = {m: _plain_binomial(m) for m in ("min", "sum")}
+    kernels = {m: models.make_binomial_obs(m) for m in ("min", "sum")}
+    plains = {m: functools.partial(models.binomial_log_weight_reference, combine=m)
+              for m in ("min", "sum")}
     edges = _weight_edges(gen)
     for label, yy, x, p in edges:
         for m in ("min", "sum"):
@@ -702,72 +767,17 @@ def phase_weight_kernel(model, obs, y):
                       f"weight kernel at {chains} x {n}, step {steps}, {m}: differs from the twin")
             steps += 1
         p = torch.tensor(0.1, device=DEV)
-        particles = chains * n
-        c = x.shape[-1]
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            plains["min"](yt, x, p)
-            torch.cuda.synchronize()
-        twin_ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-        ms = cuda_ms(lambda: kernels["min"](yt, x, p), reps=20)
-        b2b = cuda_ms(lambda: [kernels["min"](yt, x, p) for _ in range(10)], reps=5) / 10
-        plain_ms = cuda_ms(lambda: plains["min"](yt, x, p), reps=5)
-        # the kernel's own device time (the events above also hold the host's
-        # dispatch of each call), and the host's time a call
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                kernels["min"](yt, x, p)
-            torch.cuda.synchronize()
-        device_us = float(np.median([e.time_range.elapsed_us() for e in prof.events()
-                                     if "obs_binomial_kernel" in e.name] or [float("nan")]))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            kernels["min"](yt, x, p)
-        host_us = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
-        ops = twin_ops * particles * c
-        nbytes = particles * (4 * c + 4)
-        bound_ops, bound_bytes = ops / OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(bound_ops, bound_bytes)
-        row = dict(shape=f"{chains} x {n} x {c}", particles=particles, steps_checked=steps,
-                   ms=ms, b2b_ms=b2b, device_us=device_us, host_us=host_us,
-                   plain_ms=plain_ms, twin_launches=twin_ops,
-                   bound_ms=bound_ms, bound_by="ops" if bound_ops >= bound_bytes else "bytes",
-                   bound_share=bound_ms / ms, bound_share_b2b=bound_ms / b2b,
-                   bound_share_device=bound_ms * 1e3 / device_us)
-        rows.append(row)
-        print(f"weight_kernel[{chains} x {n}]: == twin bit for bit at {steps} filter steps of "
-              f"the tau-leap's states, min and sum; kernel {ms:.4f} ms one call, {b2b:.4f} ms "
-              f"back to back (events around the Python call), {device_us:.2f} us on the device "
-              f"(profiler, median of 20), {host_us:.2f} us of host a call; twin {plain_ms:.4f} "
-              f"ms ({twin_ops} launches); bound {bound_ms:.5f} ms by {row['bound_by']} (ops "
-              f"{bound_ops:.5f}, bytes {bound_bytes:.5f}); share of bound "
-              f"{100 * row['bound_share']:.2f} % one call, {100 * row['bound_share_b2b']:.2f} % "
-              f"back to back, {100 * row['bound_share_device']:.2f} % of the device time; "
-              f"SM clock {_sm_clock()}",
-              flush=True)
-    kw, runs = _weight_pmmh(model, obs, y, plains["min"])
-    k, pl = runs["kernel"], runs["plain"]
-    t_len = y.shape[0]
-    check(k["launches"] == k["counter"] == k["steps"] == (t_len - 1) * k["filters"],
-          f"weight launches {k['launches']}, counter {k['counter']}, filter steps {k['steps']}, "
-          f"filters {k['filters']} x {t_len - 1}: not one launch a filter step")
-    check(pl["launches"] == 0 and pl["steps"] == k["steps"],
-          f"plain run launched {pl['launches']} and made {pl['steps']} filter steps")
-    for key in ("thetas", "log_likelihoods"):
-        check(_same_bits(getattr(k["res"], key), getattr(pl["res"], key)),
-              f"production PMMH on the kernel: {key} differ from the plain weighting's")
-    rate = {name: kw["n_chains"] * kw["n_iters"] / r["wall"] for name, r in runs.items()}
-    print(f"weight_kernel[pmmh]: production preset, {kw['n_chains']} chains x "
-          f"{kw['n_particles']} x {kw['n_iters']} rows, same seed: thetas and log-likelihoods "
-          f"== the plain weighting's bit for bit; {k['launches']} launches == "
-          f"obs.weight_launches {k['counter']} == {k['steps']} filter steps ({k['filters']} "
-          f"filters x {t_len - 1}, init search included); {rate['kernel']:.1f} iters/s against "
-          f"{rate['plain']:.1f} on the plain weighting", flush=True)
-    return dict(rows=rows, pmmh_launches=k["launches"], pmmh_filter_steps=k["steps"],
-                iters_per_s=rate["kernel"], plain_iters_per_s=rate["plain"])
+        particles, c = chains * n, x.shape[-1]
+        label = (f"weight_kernel[{chains} x {n}]: == twin bit for bit at {steps} filter steps "
+                 f"of the tau-leap's states, min and sum")
+        rows.append(dict(shape=f"{chains} x {n} x {c}", particles=particles, steps_checked=steps,
+                         **_time_against_twin(label, lambda: kernels["min"](yt, x, p),
+                                              lambda: plains["min"](yt, x, p),
+                                              "obs_binomial_kernel", particles * c,
+                                              particles * (4 * c + 4))))
+    return dict(rows=rows, **_pmmh_against_twin("weight_kernel", model, obs, y, "obs_weight",
+                                                "pf_weight", models, "binomial_log_weight",
+                                                models.binomial_log_weight_reference))
 
 
 # ---- the likelihood update (csrc/pf_loglik.cu) --------------------------------
@@ -800,39 +810,6 @@ def _loglik_equal(got, want):
     (z, lw, degen), (z0, lw0, degen0) = got, want
     return (_same_bits(z, z0) and torch.equal(degen.cpu(), degen0.cpu())
             and ((lw is None and lw0 is None) or _same_bits(lw, lw0)))
-
-
-def _loglik_pmmh(model, obs, y):
-    """The production preset at WEIGHT_PMMH_ITERS rows on the kernel and on
-    the twin (the filter's entry point patched), one seed; the kernel's
-    launches and the pf_loglik spans of a recording."""
-    from epitpu_torch import profiling
-    from epitpu_torch.smc import filter as pf
-
-    cfg = PRESETS["production"]()
-    cfg.seed = SEED
-    cfg.mcmc.n_iters = WEIGHT_PMMH_ITERS
-    kw, _ = pmmh_arguments(cfg, model, obs, y, DEV)
-    out = {}
-    kernel_update = pf.loglik_update
-    for name, update in (("kernel", kernel_update),
-                         ("twin", loglik_cuda.loglik_update_reference)):
-        pf.loglik_update = update
-        try:
-            torch.cuda.synchronize()
-            launches0 = loglik_cuda.LOGLIK_LAUNCHES
-            t0 = time.perf_counter()
-            with profiling.recording() as rec:
-                res = particle_mcmc_chains(model, obs, y.to(DEV), **kw)
-                torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            pf.loglik_update = kernel_update
-        names = [s.name for s in rec.spans]
-        out[name] = dict(res=res, wall=wall, launches=loglik_cuda.LOGLIK_LAUNCHES - launches0,
-                         counter=rec.counters.get("pf.loglik_launches", 0),
-                         steps=names.count("pf_loglik"), filters=names.count("pf_scan"))
-    return kw, out
 
 
 def phase_loglik_kernel(model, obs, y):
@@ -888,64 +865,17 @@ def phase_loglik_kernel(model, obs, y):
                   f"loglik kernel at {chains} x {n}, step {steps}: differs from the twin")
             log_z, lw, _ = got
             steps += 1
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            twin(logw, log_z, log_n, lw)
-            torch.cuda.synchronize()
-        twin_ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-        ms = cuda_ms(lambda: update(logw, log_z, log_n, lw), reps=20)
-        b2b = cuda_ms(lambda: [update(logw, log_z, log_n, lw) for _ in range(10)], reps=5) / 10
-        plain_ms = cuda_ms(lambda: twin(logw, log_z, log_n, lw), reps=5)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                update(logw, log_z, log_n, lw)
-            torch.cuda.synchronize()
-        device_us = float(np.median([e.time_range.elapsed_us() for e in prof.events()
-                                     if "loglik_" in e.name] or [float("nan")]))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            update(logw, log_z, log_n, lw)
-        host_us = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
-        bound_ms = chains * n * LOGLIK_BYTES / HBM_BYTES_PER_S * 1e3
-        row = dict(shape=f"{chains} x {n}", particles=chains * n, steps_checked=steps, ms=ms,
-                   b2b_ms=b2b, device_us=device_us, host_us=host_us, plain_ms=plain_ms,
-                   twin_launches=twin_ops, bound_ms=bound_ms, bound_by="bytes",
-                   bound_share=bound_ms / ms, bound_share_b2b=bound_ms / b2b,
-                   bound_share_device=bound_ms * 1e3 / device_us)
-        rows_out.append(row)
-        print(f"loglik_kernel[{chains} x {n}]: == twin bit for bit at {steps} filter steps of "
-              f"K4's states (carry form); kernel {ms:.4f} ms one call, {b2b:.4f} ms back to "
-              f"back (events around the Python call), {device_us:.2f} us on the device "
-              f"(profiler, median of 20), {host_us:.2f} us of host a call; twin {plain_ms:.4f} "
-              f"ms ({twin_ops} launches); bound {bound_ms:.5f} ms by bytes ({LOGLIK_BYTES} B a "
-              f"particle at 3.35 TB/s); share of bound {100 * row['bound_share']:.2f} % one "
-              f"call, {100 * row['bound_share_b2b']:.2f} % back to back, "
-              f"{100 * row['bound_share_device']:.2f} % of the device time; SM clock "
-              f"{_sm_clock()}", flush=True)
-    kw, runs = _loglik_pmmh(model, obs, y)
-    k, tw = runs["kernel"], runs["twin"]
-    t_len = y.shape[0]
-    check(k["launches"] == k["counter"] == k["steps"] == (t_len - 1) * k["filters"],
-          f"loglik launches {k['launches']}, counter {k['counter']}, filter steps {k['steps']}, "
-          f"filters {k['filters']} x {t_len - 1}: not one launch a filter step")
-    check(tw["launches"] == 0 and tw["steps"] == k["steps"],
-          f"twin run launched {tw['launches']} and made {tw['steps']} filter steps")
-    for key in ("thetas", "log_likelihoods"):
-        check(_same_bits(getattr(k["res"], key), getattr(tw["res"], key)),
-              f"production PMMH on the loglik kernel: {key} differ from the twin's")
-    rate = {name: kw["n_chains"] * kw["n_iters"] / r["wall"] for name, r in runs.items()}
-    print(f"loglik_kernel[pmmh]: production preset, {kw['n_chains']} chains x "
-          f"{kw['n_particles']} x {kw['n_iters']} rows, same seed: thetas and log-likelihoods "
-          f"== the twin's bit for bit; {k['launches']} launches == pf.loglik_launches "
-          f"{k['counter']} == {k['steps']} filter steps ({k['filters']} filters x {t_len - 1}, "
-          f"init search included); {rate['kernel']:.1f} iters/s against {rate['twin']:.1f} on "
-          f"the twin", flush=True)
-    return dict(rows=rows_out, registers=regs, pmmh_launches=k["launches"],
-                pmmh_filter_steps=k["steps"], iters_per_s=rate["kernel"],
-                plain_iters_per_s=rate["twin"])
+        label = (f"loglik_kernel[{chains} x {n}]: == twin bit for bit at {steps} filter steps "
+                 f"of K4's states (carry form)")
+        rows_out.append(dict(shape=f"{chains} x {n}", particles=chains * n, steps_checked=steps,
+                             **_time_against_twin(label, lambda: update(logw, log_z, log_n, lw),
+                                                  lambda: twin(logw, log_z, log_n, lw),
+                                                  "loglik_", 0, chains * n * LOGLIK_BYTES)))
+    from epitpu_torch.smc import filter as pf
+
+    return dict(rows=rows_out, registers=regs,
+                **_pmmh_against_twin("loglik_kernel", model, obs, y, "pf_loglik", "pf_loglik",
+                                     pf, "loglik_update", twin))
 
 
 def _sm_clock():
@@ -1412,7 +1342,7 @@ def phase_pmmh_model(name, obs, k):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     family = model.kernel.family
-    launched = tauleap_cuda.FAMILY_LAUNCHES[family]
+    launched = _build.LAUNCHES[family]
     t_len = y.shape[0]
     check(launched >= (MODELS_ITERS - 1) * (t_len - 1),
           f"{name}: {launched} {family} launches, expected >= {(MODELS_ITERS - 1) * (t_len - 1)}")
@@ -1439,14 +1369,14 @@ def phase_abc():
     y, _ = generate_dataset(cfg)
     priors = {n: (a.prior_lo, a.prior_hi) for n in model.theta_names}
     for batch in (a.batch_size, ABC_BIG_BATCH):
-        before = tauleap_cuda.FAMILY_LAUNCHES["sir"]
+        before = _build.LAUNCHES["sir"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = abc_rejection(model, SEED + batch, torch.from_numpy(y).to(dev), a.n_samples,
                             a.threshold, priors, batch_size=batch,
                             steps_per_unit=a.steps_per_unit)
         wall = time.perf_counter() - t0
-        launched = tauleap_cuda.FAMILY_LAUNCHES["sir"] - before
+        launched = _build.LAUNCHES["sir"] - before
         check(res.backend == DEV.type, f"abc ran on {res.backend}")
         check(launched == res.trials // batch, f"abc: {launched} launches for {res.trials} trials")
         tr = res.trajectories
@@ -1786,7 +1716,7 @@ def _twin_data(model, x0, theta, seed):
 
 
 def _hand_launches():
-    return sum(tauleap_cuda.FAMILY_LAUNCHES[f] for f in tauleap_cuda.FAMILIES)
+    return sum(_build.LAUNCHES[f] for f in tauleap_cuda.FAMILIES)
 
 
 def phase_user_pmmh(obs, y):
@@ -1803,10 +1733,10 @@ def phase_user_pmmh(obs, y):
     res = particle_mcmc_chains(model, obs, y.to(DEV), list(SIRS_TRUTH), 0.6, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched, hand = tauleap_cuda.FAMILY_LAUNCHES["generated"], _hand_launches()
-    check(hand == 0 and tauleap_cuda.FAMILY_LAUNCHES["plain"] == 0,
+    launched, hand = _build.LAUNCHES["generated"], _hand_launches()
+    check(hand == 0 and _build.LAUNCHES["plain"] == 0,
           f"user-models[pmmh]: {hand} hand launches, "
-          f"{tauleap_cuda.FAMILY_LAUNCHES['plain']} plain runs")
+          f"{_build.LAUNCHES['plain']} plain runs")
     check(launched >= (USER_ITERS - 1) * (y.shape[0] - 1),
           f"user-models[pmmh]: {launched} generated launches")
     thetas = res.thetas.cpu().numpy()
@@ -1846,10 +1776,10 @@ def phase_user_one_chain(obs, y):
     for field in ("thetas", "log_likelihoods", "sampled_trajs"):
         check(torch.equal(getattr(one, field), getattr(batch, field)[0]),
               f"particle_mcmc's {field} differ from chain 0 of particle_mcmc_chains")
-    before = tauleap_cuda.FAMILY_LAUNCHES["generated"]
+    before = _build.LAUNCHES["generated"]
     fc = forecast_from_result(model, PhiloxStream(SEED + 93, DEV), one, 5)
     torch.cuda.synchronize()
-    check(tauleap_cuda.FAMILY_LAUNCHES["generated"] == before + 1,
+    check(_build.LAUNCHES["generated"] == before + 1,
           "the SIRS forecast is not one generated launch")
     check(tuple(fc.shape) == (USER_ONE_ITERS, 6, 3), f"SIRS forecast shape {tuple(fc.shape)}")
     check(bool((fc == torch.round(fc)).all() and (fc >= 0).all() and (fc.sum(-1) == POP).all()),
@@ -1867,13 +1797,13 @@ def phase_user_abc(lat):
     priors = {"beta": (0.0, 5.0), "gamma": (0.0, 5.0), "omega": (0.0, 1.0)}
     obs_np = lat.numpy()
     for batch in (ABC_LANES, ABC_BIG_BATCH):
-        before = tauleap_cuda.FAMILY_LAUNCHES["generated"]
+        before = _build.LAUNCHES["generated"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = abc_rejection(model, SEED + 94 + batch, lat.to(DEV), USER_ABC_SAMPLES,
                             USER_ABC_THRESHOLD, priors, batch_size=batch)
         wall = time.perf_counter() - t0
-        launched = tauleap_cuda.FAMILY_LAUNCHES["generated"] - before
+        launched = _build.LAUNCHES["generated"] - before
         check(res.backend == DEV.type, f"SIRS abc ran on {res.backend}")
         check(launched == res.trials // batch, f"SIRS abc: {launched} launches, {res.trials} trials")
         tr = res.trajectories
@@ -2374,7 +2304,7 @@ def _arrays(arr):
 def on_child_path(name, families, reports):
     """The launch counts of a path run in child processes, summed over
     them; every child must have launched each family."""
-    counts = dict.fromkeys(tauleap_cuda.FAMILY_LAUNCHES, 0)
+    counts = dict.fromkeys(_build.LAUNCHES, 0)
     for r, rep in enumerate(reports):
         for f in families:
             check(rep["launches"][f] > 0, f"{name}: rank {r} never launched the {f} kernel")
@@ -2571,7 +2501,6 @@ def child_main(phase, rank, world, d):
     model, obs = sir_model(), get_observation_model("binomial")
     y = dataset_from_csv(os.path.join(DATA, "dataset.csv"), DEV)
     report, arrays = {}, {}
-    tauleap_cuda.reset_launch_counts()
     if phase == "cli-multihost":
         with _workdir("cli-multihost"):
             out = _cli(["--multihost", "--preset", "sir_underreported", "--iters",
@@ -2616,7 +2545,7 @@ def child_main(phase, rank, world, d):
                                         record_history=False)
             arrays["logz"] = gather_result(f, mesh).log_likelihood.cpu().numpy()
     torch.cuda.synchronize()
-    report["launches"] = dict(tauleap_cuda.FAMILY_LAUNCHES)
+    report["launches"] = dict(_build.LAUNCHES)  # this process's: the child starts at 0
     with open(os.path.join(d, f"rank{rank}.json"), "w") as fh:
         json.dump(report, fh)
     if rank == 0:
@@ -2678,50 +2607,28 @@ def kernel_entries(rows):
     return entries
 
 
-def weight_entry(weight):
-    """The weighting kernel's entry: its 2,048 x 16 case as the headline,
-    the 32 x 4,096 case beside it."""
-    main = weight["rows"][0]
+def hand_entry(name, key, source, result):
+    """The JSON entry of a hand kernel held to its twin bit for bit
+    (``_time_against_twin``, ``_pmmh_against_twin``): its 2,048 x 16 case as
+    the headline, the 32 x 4,096 case beside it."""
+    main = result["rows"][0]
     return {
-        "name": "obs_binomial_kernel",
+        "name": name,
         "route": "cuda",
         "kernel_route": "hand",
-        "source": "epitpu_torch/csrc/obs_binomial.cu",
-        "replaces": None,  # epitpu leaves epitpu/observe/models.py:28-97 to XLA's fusion
-        "launches": sum(p.get("obs_weight", 0) for p in PATH_LAUNCHES.values()),
-        "launches_by_path": {n: p["obs_weight"] for n, p in PATH_LAUNCHES.items()
-                             if p.get("obs_weight")},
+        "source": source,
+        # epitpu leaves the weighting (epitpu/observe/models.py:28-97) and the
+        # update (epitpu/smc/filter.py:208-233) to XLA's fusion
+        "replaces": None,
+        "launches": sum(p.get(key, 0) for p in PATH_LAUNCHES.values()),
+        "launches_by_path": {n: p[key] for n, p in PATH_LAUNCHES.items() if p.get(key)},
         "max_abs_err": 0.0,  # bit for bit
-        **{key: main[key] for key in ("ms", "b2b_ms", "plain_ms", "bound_ms", "bound_by",
-                                      "bound_share")},
-        "library_ms": None,  # no single PyTorch call computes the binomial weight
-        "cases": weight["rows"],
-        "pmmh_launches": weight["pmmh_launches"],
-        "pmmh_filter_steps": weight["pmmh_filter_steps"],
-    }
-
-
-def loglik_entry(loglik):
-    """The likelihood-update kernel's entry: its 2,048 x 16 case as the
-    headline, the 32 x 4,096 case beside it."""
-    main = loglik["rows"][0]
-    return {
-        "name": "loglik_kernel",
-        "route": "cuda",
-        "kernel_route": "hand",
-        "source": "epitpu_torch/csrc/pf_loglik.cu",
-        "replaces": None,  # epitpu leaves epitpu/smc/filter.py:208-233 to XLA's fusion
-        "launches": sum(p.get("pf_loglik", 0) for p in PATH_LAUNCHES.values()),
-        "launches_by_path": {n: p["pf_loglik"] for n, p in PATH_LAUNCHES.items()
-                             if p.get("pf_loglik")},
-        "max_abs_err": 0.0,  # bit for bit with the twin
-        **{key: main[key] for key in ("ms", "b2b_ms", "plain_ms", "bound_ms", "bound_by",
-                                      "bound_share")},
-        "library_ms": None,  # torch.logsumexp alone leaves out the update around it
-        "cases": loglik["rows"],
-        "registers": loglik["registers"],
-        "pmmh_launches": loglik["pmmh_launches"],
-        "pmmh_filter_steps": loglik["pmmh_filter_steps"],
+        **{k: main[k] for k in ("ms", "b2b_ms", "plain_ms", "bound_ms", "bound_by",
+                                "bound_share")},
+        "library_ms": None,  # no single PyTorch call computes either
+        "cases": result["rows"],
+        **{k: result[k] for k in ("registers", "pmmh_launches", "pmmh_filter_steps")
+           if k in result},
     }
 
 
@@ -2781,9 +2688,10 @@ def main():
           f"{json.dumps(routes)}", flush=True)
     print(f"phase seconds (host clock): {json.dumps(PHASE_SECONDS)}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s on {smi}", flush=True)
-    print(json.dumps({"kernels": kernel_entries(rows) + [weight_entry(weight),
-                                                         loglik_entry(loglik)],
-                      "routes": routes}), flush=True)
+    hand = [hand_entry("obs_binomial_kernel", "obs_weight", "epitpu_torch/csrc/obs_binomial.cu",
+                       weight),
+            hand_entry("loglik_kernel", "pf_loglik", "epitpu_torch/csrc/pf_loglik.cu", loglik)]
+    print(json.dumps({"kernels": kernel_entries(rows) + hand, "routes": routes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,8 @@ The binomial weight runs by the device of ``x_obs``: on the card one launch
 of the hand-written kernel ``epitpu_torch/csrc/obs_binomial.cu``
 (``epitpu_torch.ops.obs_cuda``; ``x_obs`` ``[chains, N, obs_dim]``,
 ``param`` a 0-d or ``[chains, 1, 1]`` tensor, as the filter passes them), on
-the CPU its plain twin, ``binom_logpmf`` and the combine, which the kernel
-equals bit for bit on the card.
+the CPU its plain twin, ``binomial_log_weight_reference`` (``binom_logpmf``
+and the combine), which the kernel equals bit for bit on the card.
 """
 from __future__ import annotations
 
@@ -82,6 +82,12 @@ def _combine(logs, mode):
     raise ValueError(f"unknown combine mode {mode!r}")
 
 
+def binomial_log_weight_reference(y, x_obs, p, combine="min"):
+    """The plain twin of the binomial weighting kernel
+    (``epitpu_torch.ops.obs_cuda.binomial_log_weight``), on any device."""
+    return _combine(binom_logpmf(y, x_obs, p), combine)
+
+
 def make_binomial_obs(combine="min"):
     """Under-reported counts: Y[c] ~ Binomial(X[c], p).  A CUDA ``x_obs``
     launches the kernel, a CPU one runs the twin; any other input raises."""
@@ -91,7 +97,7 @@ def make_binomial_obs(combine="min"):
         if device == "cuda":
             return binomial_log_weight(y, x_obs, p, combine)
         if device == "cpu":
-            return _combine(binom_logpmf(y, x_obs, p), combine)
+            return binomial_log_weight_reference(y, x_obs, p, combine)
         raise ValueError(f"no binomial observation weight for x_obs on {device or type(x_obs)}")
 
     return log_weight

@@ -7,7 +7,10 @@ likelihood update) for Hopper
 (``sm_90a``) into one ``epitpu_torch/_build/libepitpu_kernels-<hash>.so``, a
 plain C interface loaded with ``ctypes``; the file name carries a hash of
 the sources and the flags, so an edited source builds anew.  No PyTorch
-headers are compiled, which keeps the build to seconds.
+headers are compiled, which keeps the build to seconds.  ``ENTRIES`` holds
+the ctypes signature of every C entry, and ``launch`` is the one way the
+wrappers (``tauleap_cuda``, ``obs_cuda``, ``loglik_cuda``) call one: on the
+card's current stream, its return code checked, counted in ``LAUNCHES``.
 
 A model without a hand-written functor gets its own library: the functor
 text ``epitpu_torch.ops.rate_trace.functor_source`` generates from the
@@ -32,6 +35,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
+
+from .. import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -96,9 +103,9 @@ def _compile(cmd, tmp, out):
     return dict(seconds=time.perf_counter() - t0, ptxas=proc.stderr.strip(), path=str(out))
 
 
-# ctypes signature of csrc/tauleap.cu:epi_traj, in its parameter order
-EPI_TRAJ_ARGTYPES = (
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # family, k, transpose
+# epi_traj's parameters after its family, k and transpose: all of the
+# generated entry's (GENERATED_ENTRY)
+_TRAJ_LAUNCH = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x0, theta, out
     ctypes.c_int, ctypes.c_int, ctypes.c_int,  # lanes, theta stride, lanes per theta
     ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,  # key0, key1, offset
@@ -109,21 +116,65 @@ EPI_TRAJ_ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_int,  # group, threads per block, blocks
     ctypes.c_void_p,  # cudaStream_t
 )
+# the ctypes signature of every C entry, in its parameter order: each
+# ``extern "C"`` entry of SOURCES' ``.cu`` files, and the generated one
+ENTRIES = {
+    "epi_traj": (ctypes.c_int, ctypes.c_int, ctypes.c_int) + _TRAJ_LAUNCH,  # family, k, transpose
+    "epi_obs_binomial": (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # y, x, p
+        ctypes.c_longlong, ctypes.c_void_p,  # p's stride between chains, out
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,  # rows, rows a chain, compartments
+        ctypes.c_int,  # combine: 0 min, 1 sum
+        ctypes.c_void_p,  # cudaStream_t
+    ),
+    "epi_pf_loglik": (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # logw, lw (or null), log_z
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # log_z', lw' (or null), degen
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_double,  # rows, N, log N
+        ctypes.c_void_p,  # cudaStream_t
+    ),
+    "epi_traj_generated": _TRAJ_LAUNCH,
+}
+GENERATED = "epi_traj_generated"
+
+# the hand-written kernels' launches in this process: K4's by family
+# (tauleap_cuda.FAMILIES) and on generated functors, the binomial weighting's
+# ("obs_weight") and the likelihood update's ("pf_loglik"); "plain" counts
+# the calls of K4's twin on the card (tauleap_cuda.route), which launch none
+LAUNCHES = dict.fromkeys(("sir", "seir", "sir_subgroups", "generated", "plain", "obs_weight",
+                          "pf_loglik"), 0)
+# the epitpu_torch.profiling counter a launch adds to as well
+PROFILED = {"obs_weight": "obs.weight_launches", "pf_loglik": "pf.loglik_launches"}
 
 
-# ctypes signature of csrc/obs_binomial.cu:epi_obs_binomial, in its parameter order
-EPI_OBS_BINOMIAL_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # y, x, p
-    ctypes.c_longlong, ctypes.c_void_p,  # p's stride between chains, out
-    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,  # rows, rows a chain, compartments
-    ctypes.c_int,  # combine: 0 min, 1 sum
-    ctypes.c_void_p,  # cudaStream_t
-)
+def bind(lib, *names):
+    """``lib`` with the ctypes signature of each entry of ``names`` set from ``ENTRIES``."""
+    for name in names:
+        entry = getattr(lib, name)
+        entry.argtypes = list(ENTRIES[name])
+        entry.restype = ctypes.c_int
+    return lib
 
 
-# ctypes signature of the generated sources' epi_traj_generated: epi_traj's
-# parameters without family, k and transpose
-EPI_TRAJ_GENERATED_ARGTYPES = EPI_TRAJ_ARGTYPES[3:]
+def launch(entry, key, device, *args):
+    """Launch the C entry ``entry`` (set by ``bind``) with ``args`` and the
+    current stream of ``device``'s card, made current for the call if it is
+    not; raise naming the entry on a nonzero return (a CUDA error), else
+    count the launch in ``LAUNCHES[key]`` and its ``PROFILED`` counter."""
+    index, current = device.index, torch.cuda.current_device()
+    if index != current:
+        torch.cuda.set_device(index)
+    try:
+        rc = entry(*args, torch.cuda.current_stream(index).cuda_stream)
+    finally:
+        if index != current:
+            torch.cuda.set_device(current)
+    if rc != 0:
+        raise RuntimeError(f"{entry.__name__} launch ({key}) failed with CUDA error {rc}")
+    LAUNCHES[key] += 1
+    if key in PROFILED:
+        profiling.count(PROFILED[key])
+
 
 GENERATED_ENTRY = """
 extern "C" int epi_traj_generated(const void* x0, const void* theta, void* out, int lanes,
@@ -184,14 +235,11 @@ def build_generated(functor: str) -> Path:
 
 def load_generated(functor: str):
     """The generated functor's library (built at first use), with
-    ``epi_traj_generated``'s ctypes signature set."""
+    ``GENERATED``'s ctypes signature set."""
     path = build_generated(functor)
     lib = _GENERATED.get(str(path))
     if lib is None:
-        lib = ctypes.CDLL(str(path))
-        lib.epi_traj_generated.argtypes = list(EPI_TRAJ_GENERATED_ARGTYPES)
-        lib.epi_traj_generated.restype = ctypes.c_int
-        _GENERATED[str(path)] = lib
+        lib = _GENERATED[str(path)] = bind(ctypes.CDLL(str(path)), GENERATED)
     return lib
 
 
@@ -199,10 +247,5 @@ def load_library():
     """The built library with every entry point's ctypes signature set."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.epi_traj.argtypes = list(EPI_TRAJ_ARGTYPES)
-        lib.epi_traj.restype = ctypes.c_int
-        lib.epi_obs_binomial.argtypes = list(EPI_OBS_BINOMIAL_ARGTYPES)
-        lib.epi_obs_binomial.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind(ctypes.CDLL(str(build())), *(n for n in ENTRIES if n != GENERATED))
     return _LIB

@@ -23,44 +23,20 @@ Nothing here reads a device value on the host, so a launch never
 synchronizes.  The kernel takes float32 tensors on one card, contiguous,
 ``logw`` and ``lw`` ``[rows, N]`` with ``1 <= N <= MAX_PARTICLES`` and
 ``log_z`` ``[rows]``; anything else raises.  Its outputs are new tensors
-each call (``log_zs`` keeps every step's ``log_z``).  ``LOGLIK_LAUNCHES``
-counts the launches, and each adds to the ``pf.loglik_launches`` counter of
-``epitpu_torch.profiling``.
+each call (``log_zs`` keeps every step's ``log_z``).  ``_build.launch``
+counts the launches in ``_build.LAUNCHES["pf_loglik"]`` and the
+``pf.loglik_launches`` counter of ``epitpu_torch.profiling``.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from .. import profiling
+from . import _build
 
 TILE = 8192  # csrc/pf_loglik.cu:kTile
 MAX_PARTICLES = 1 << 30  # csrc/pf_loglik.cu:epi_pf_loglik's bound on n
-LOGLIK_LAUNCHES = 0
-_ENTRY = None
-
-# ctypes signature of csrc/pf_loglik.cu:epi_pf_loglik, in its parameter order
-EPI_PF_LOGLIK_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # logw, lw (or null), log_z
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # log_z', lw' (or null), degen
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_double,  # rows, N, log N
-    ctypes.c_void_p,  # cudaStream_t
-)
-
-
-def _entry():
-    """The C entry, with its ctypes signature (``_build.load_library``)."""
-    global _ENTRY
-    if _ENTRY is None:
-        from ._build import load_library
-
-        entry = load_library().epi_pf_loglik
-        entry.argtypes = list(EPI_PF_LOGLIK_ARGTYPES)
-        entry.restype = ctypes.c_int
-        _ENTRY = entry
-    return _ENTRY
 
 
 def row_sum(e):
@@ -128,13 +104,8 @@ def _check(logw, log_z, lw):
 
 def loglik_update_cuda(logw, log_z, log_n, lw=None):
     """The update (module docstring) in one launch of the kernel."""
-    global LOGLIK_LAUNCHES
     if logw.device.type != "cuda":
         raise ValueError(f"no likelihood-update kernel for device {logw.device}")
-    index = logw.device.index
-    if index != torch.cuda.current_device():
-        with torch.cuda.device(index):
-            return loglik_update_cuda(logw, log_z, log_n, lw)
     _check(logw, log_z, lw)
     rows = logw.shape[0]
     log_z_out = torch.empty_like(log_z)
@@ -142,14 +113,10 @@ def loglik_update_cuda(logw, log_z, log_n, lw=None):
     lw_out = None if lw is None else torch.empty_like(logw)
     if rows == 0:
         return log_z_out, lw_out, degen
-    rc = _entry()(logw.data_ptr(), None if lw is None else lw.data_ptr(), log_z.data_ptr(),
+    _build.launch(_build.load_library().epi_pf_loglik, "pf_loglik", logw.device,
+                  logw.data_ptr(), None if lw is None else lw.data_ptr(), log_z.data_ptr(),
                   log_z_out.data_ptr(), None if lw_out is None else lw_out.data_ptr(),
-                  degen.data_ptr(), rows, logw.shape[1], float(log_n),
-                  torch.cuda.current_stream(index).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"likelihood-update kernel launch failed with CUDA error {rc}")
-    LOGLIK_LAUNCHES += 1
-    profiling.count("pf.loglik_launches")
+                  degen.data_ptr(), rows, logw.shape[1], float(log_n))
     return log_z_out, lw_out, degen
 
 

@@ -17,29 +17,17 @@ chain (``[chains, 1, 1]``, as the filter passes it, read at its stride);
 anything else raises.  ``x_obs`` and ``y`` are made contiguous, a no-op on
 the kernel routes' filter states; the final-state slice of the plain route
 and of the exact sampler is a strided view, and is copied.
-``WEIGHT_LAUNCHES`` counts the launches, and each adds to the
-``obs.weight_launches`` counter of ``epitpu_torch.profiling``.
+``_build.launch`` counts the launches in ``_build.LAUNCHES["obs_weight"]``
+and the ``obs.weight_launches`` counter of ``epitpu_torch.profiling``.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import profiling
+from . import _build
 
 MAX_COMPARTMENTS = 127  # csrc/obs_binomial.cu:kMaxC
 COMBINES = ("min", "sum")  # csrc/obs_binomial.cu:epi_obs_binomial's combine_mode
-WEIGHT_LAUNCHES = 0
-_ENTRY = None
-
-
-def _entry():
-    """The C entry, with its ctypes signature (``_build.load_library``)."""
-    global _ENTRY
-    if _ENTRY is None:
-        from ._build import load_library
-
-        _ENTRY = load_library().epi_obs_binomial
-    return _ENTRY
 
 
 def _check(y, x_obs, p, combine):
@@ -71,24 +59,15 @@ def _check(y, x_obs, p, combine):
 def binomial_log_weight(y, x_obs, p, combine="min"):
     """``logw [chains, N]`` of ``x_obs [chains, N, C]`` against ``y [C]``
     with reporting probability ``p`` (module docstring), one launch."""
-    global WEIGHT_LAUNCHES
     if x_obs.device.type != "cuda":
         raise ValueError(f"no observation kernel for device {x_obs.device}")
-    index = x_obs.device.index
-    if index != torch.cuda.current_device():
-        with torch.cuda.device(index):
-            return binomial_log_weight(y, x_obs, p, combine)
     p_stride = _check(y, x_obs, p, combine)
     x_obs, y = x_obs.contiguous(), y.contiguous()
     chains, n, c = x_obs.shape
     out = torch.empty((chains, n), dtype=torch.float32, device=x_obs.device)
     if out.numel() == 0:
         return out
-    rc = _entry()(y.data_ptr(), x_obs.data_ptr(), p.data_ptr(), p_stride, out.data_ptr(),
-                  out.numel(), n, c, COMBINES.index(combine),
-                  torch.cuda.current_stream(index).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"observation kernel launch failed with CUDA error {rc}")
-    WEIGHT_LAUNCHES += 1
-    profiling.count("obs.weight_launches")
+    _build.launch(_build.load_library().epi_obs_binomial, "obs_weight", x_obs.device,
+                  y.data_ptr(), x_obs.data_ptr(), p.data_ptr(), p_stride, out.data_ptr(),
+                  out.numel(), n, c, COMBINES.index(combine))
     return out

@@ -30,9 +30,9 @@ pallas_simulate_supported``):
   declared counterpart of epitpu's XLA scan, not a fallback.
 
 A launch that fails raises; nothing retries on another route.
-``FAMILY_LAUNCHES`` counts kernel launches per family (and ``"generated"``)
-and the plain route's calls (``"plain"``); ``launches()`` sums the kernel
-launches.
+``_build.LAUNCHES`` counts the kernel launches per family (and
+``"generated"``) and the plain route's calls (``"plain"``); ``launches()``
+sums the kernel launches.
 """
 from __future__ import annotations
 
@@ -46,24 +46,19 @@ from ..models.base import CompartmentModel
 from ..rng import lane_draws, seed_key
 from ..sim.samplers import binomial_from_draws
 from ..sim.tauleap import n_draw_slots, substep
+from . import _build
 
 # model families with a hand-written functor, by their id in csrc/tauleap.cu
 FAMILIES = ("sir", "seir", "sir_subgroups")
-KERNEL_PATHS = FAMILIES + ("generated",)  # the FAMILY_LAUNCHES keys that count launches
+KERNEL_PATHS = FAMILIES + ("generated",)  # the _build.LAUNCHES keys of K4's launches
 MAX_GROUPS = 8  # csrc/tauleap.cu:kMaxGroups
 MAX_THREADS = 256  # per block, csrc/tauleap_kernel.cuh:kMaxThreads
 MAX_GROUP = 32  # threads a lane, csrc/tauleap_kernel.cuh:kMaxGroup
-FAMILY_LAUNCHES = dict.fromkeys(KERNEL_PATHS + ("plain",), 0)
 
 
 def launches():
     """Kernel launches so far, every family and generated functor."""
-    return sum(FAMILY_LAUNCHES[p] for p in KERNEL_PATHS)
-
-
-def reset_launch_counts():
-    for f in FAMILY_LAUNCHES:
-        FAMILY_LAUNCHES[f] = 0
+    return sum(_build.LAUNCHES[p] for p in KERNEL_PATHS)
 
 
 def route(model: CompartmentModel) -> str:
@@ -149,18 +144,24 @@ def hand_args(model: CompartmentModel):
     return FAMILIES.index(spec.family), int(spec.k), int(spec.transpose)
 
 
-_GENERATED = weakref.WeakKeyDictionary()  # model -> its generated library
+_ENTRIES = weakref.WeakKeyDictionary()  # model -> (C entry, its leading arguments, key)
 
 
-def generated_library(model: CompartmentModel):
-    """The library of ``model``'s generated functor, traced and built at
-    first use and kept for the model's lifetime."""
-    lib = _GENERATED.get(model)
-    if lib is None:
-        from . import _build, rate_trace
+def _entry(model: CompartmentModel, path: str):
+    """``model``'s C entry on route ``path``, the arguments that lead its
+    own and its ``_build.LAUNCHES`` key; kept for the model's lifetime, a
+    generated functor traced and built at first use."""
+    hit = _ENTRIES.get(model)
+    if hit is None:
+        if path == "hand":
+            hit = (_build.load_library().epi_traj, hand_args(model), model.kernel.family)
+        else:
+            from . import rate_trace
 
-        lib = _GENERATED[model] = _build.load_generated(rate_trace.functor_source(model))
-    return lib
+            lib = _build.load_generated(rate_trace.functor_source(model))
+            hit = (lib.epi_traj_generated, (), "generated")
+        _ENTRIES[model] = hit
+    return hit
 
 
 IDENTITY_LANE_MAP = (0, 1, 1, 0)
@@ -226,18 +227,11 @@ def simulate_lanes(model: CompartmentModel, x0, theta, seed: int, offset: int,
     if path == "plain":
         out = simulate_lanes_reference(model, x0, theta, seed, offset, t_max, n_sub,
                                        final_only, lpt, lane_map=lane_map, dt=dt)
-        FAMILY_LAUNCHES["plain"] += 1
+        _build.LAUNCHES["plain"] += 1
         return out
     if not (x0.is_contiguous() and theta.is_contiguous()):
         raise ValueError("x0 and theta must be contiguous")
-    if path == "hand":
-        from ._build import load_library
-
-        entry = functools.partial(load_library().epi_traj, *hand_args(model))
-        counter = model.kernel.family
-    else:
-        entry = generated_library(model).epi_traj_generated
-        counter = "generated"
+    entry, lead, key = _entry(model, path)
     b, c_dim = x0.shape
     rows = (b, c_dim) if final_only else (b, t_max + 1, c_dim)
     out = torch.empty(rows, dtype=torch.float32, device=x0.device)
@@ -246,15 +240,7 @@ def simulate_lanes(model: CompartmentModel, x0, theta, seed: int, offset: int,
     group, threads, blocks = launch_geometry(model.num_reactions, b,
                                              _sm_count(x0.device.index))
     k0, k1 = seed_key(seed)
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        rc = entry(
-            x0.data_ptr(), theta.data_ptr(), out.data_ptr(), b, theta.shape[1], lpt, k0, k1,
-            int(offset), *lane_map, t_max, n_sub, dt, int(final_only), group, threads, blocks,
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"tau-leap kernel launch ({path} route, model {model.name!r}) "
-                           f"failed with CUDA error {rc}")
-    FAMILY_LAUNCHES[counter] += 1
+    _build.launch(entry, key, x0.device, *lead, x0.data_ptr(), theta.data_ptr(), out.data_ptr(),
+                  b, theta.shape[1], lpt, k0, k1, int(offset), *lane_map, t_max, n_sub, dt,
+                  int(final_only), group, threads, blocks)
     return out

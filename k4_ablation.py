@@ -188,9 +188,7 @@ def build_variants():
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{err}")
-        lib = ctypes.CDLL(str(d / "lib.so"))
-        lib.epi_traj.argtypes = list(_build.EPI_TRAJ_ARGTYPES)
-        lib.epi_traj.restype = ctypes.c_int
+        lib = _build.bind(ctypes.CDLL(str(d / "lib.so")), "epi_traj")
         libs[name] = (lib, 1 if name == "one_thread" else None)
     return libs
 

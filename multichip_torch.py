@@ -281,7 +281,7 @@ def child_main(job_path):
                                    sharded_particle_filter, sharded_pmmh)
     from epitpu_torch.models import sir_model
     from epitpu_torch.observe import get_observation_model
-    from epitpu_torch.ops import tauleap_cuda
+    from epitpu_torch.ops import _build
 
     with open(job_path) as f:
         job = json.load(f)
@@ -307,7 +307,6 @@ def child_main(job_path):
     mesh_backend = None if backend == "nccl" else "gloo"
     phase("joined")
     model, obs = sir_model(), get_observation_model("binomial")
-    tauleap_cuda.reset_launch_counts()
     report = {"rank": rank, "world": world, "local_rank": int(os.environ.get("LOCAL_RANK", 0)),
               "world_backend": dist.get_backend_config(), "backends": {}, "runs": {},
               "dryrun": {}}
@@ -373,7 +372,7 @@ def child_main(job_path):
             }
             phase(f"run {name} ({seconds:.3f} s)")
     _sync(device)
-    report["launches"] = dict(tauleap_cuda.FAMILY_LAUNCHES)
+    report["launches"] = dict(_build.LAUNCHES)  # this process's: the worker starts at 0
     report["lane_maps"] = sorted(m for m in lane_maps.seen if m is not None)
     report["identity_launches"] = None in lane_maps.seen
     if device.type == "cuda":

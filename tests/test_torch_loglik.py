@@ -2,7 +2,6 @@
 against the formula it replaced, its order of summation against the kernel's
 thread layout, its rows' independence of one another, the wrapper's checks,
 the filter's dispatch; on the card, the kernel against the twin."""
-import ctypes
 import math
 import re
 
@@ -189,7 +188,7 @@ def test_cpu_filter_steps_go_through_the_update_and_launch_nothing(monkeypatch):
 
     monkeypatch.setattr(pf, "loglik_update", spy)
     y = torch.tensor([[0.0, 2.0, 0.0]] * 6) * torch.arange(6.0)[:, None]
-    before = loglik_cuda.LOGLIK_LAUNCHES
+    before = dict(_build.LAUNCHES)
     for every in (1, 4):
         stream, gen = filter_streams(3, "cpu")
         with profiling.recording() as rec:
@@ -198,7 +197,7 @@ def test_cpu_filter_steps_go_through_the_update_and_launch_nothing(monkeypatch):
                                      n_particles=16, steps_per_unit=2, resample_every=every)
         assert res.log_likelihood.shape == (3,) and rec.counters == {}
     assert calls == [False] * 5 + [True] * 5
-    assert loglik_cuda.LOGLIK_LAUNCHES == before
+    assert _build.LAUNCHES == before
 
 
 def test_update_raises_off_the_cpu_and_the_card():
@@ -251,11 +250,7 @@ def test_kernel_is_built_counted_and_declared():
     assert consts["kRowThreads"] * consts["kMaxPerThread"] == loglik_cuda.TILE
     assert consts["kWarp"] == 32 and "n > (1 << 30)" in src
     assert loglik_cuda.MAX_PARTICLES == 1 << 30
-    m = re.search(r'extern "C" int epi_pf_loglik\(([^)]*)\)', src)
-    params = [p.strip() for p in m.group(1).split(",")]
-    ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "double": ctypes.c_double}
-    want = [ctypes.c_void_p if "*" in p else ctype[p.rsplit(None, 1)[0]] for p in params]
-    assert len(params) == 10 and list(loglik_cuda.EPI_PF_LOGLIK_ARGTYPES) == want
+    assert _build.PROFILED["pf_loglik"] == "pf.loglik_launches"
 
 
 # ---- on the card ------------------------------------------------------------------
@@ -275,9 +270,9 @@ def test_kernel_equals_twin_on_card(n, carry):
             continue
         logw, log_z, lw = _inputs(rows, n, seed=n + rows, device="cuda")
         lw = lw if carry else None
-        before = loglik_cuda.LOGLIK_LAUNCHES
+        before = _build.LAUNCHES["pf_loglik"]
         got = loglik_update(logw, log_z, math.log(n), lw)
-        assert loglik_cuda.LOGLIK_LAUNCHES == before + 1
+        assert _build.LAUNCHES["pf_loglik"] == before + 1
         assert _outputs_equal(got, loglik_update_reference(logw, log_z, math.log(n), lw)), rows
 
 
@@ -306,12 +301,12 @@ def test_kernel_launches_once_a_filter_step_without_a_synchronize():
     y = (torch.tensor([[0.0, 2.0, 0.0]] * 6) * torch.arange(6.0)[:, None]).cuda()
     for every in (1, 4):
         stream, gen = filter_streams(3, "cuda")
-        before = loglik_cuda.LOGLIK_LAUNCHES
+        before = _build.LAUNCHES["pf_loglik"]
         with profiling.recording() as rec:
             particle_filter(sir_model(), get_observation_model("binomial"), y,
                             torch.tensor([[2.0, 1.0]] * 3), 0.1, stream, gen, n_particles=16,
                             steps_per_unit=2, resample_every=every)
-        assert loglik_cuda.LOGLIK_LAUNCHES - before == 5 == rec.counters["pf.loglik_launches"]
+        assert _build.LAUNCHES["pf_loglik"] - before == 5 == rec.counters["pf.loglik_launches"]
     logw, log_z, lw = _inputs(32, 4096, seed=2, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")

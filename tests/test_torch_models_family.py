@@ -18,7 +18,7 @@ from epitpu_torch.mcmc import posterior_forecast
 from epitpu_torch.models import KernelSpec, make_model, seir_model, sir_model
 from epitpu_torch.models import sir_subgroups_model
 from epitpu_torch.observe import get_observation_model
-from epitpu_torch.ops import tauleap_cuda
+from epitpu_torch.ops import _build, tauleap_cuda
 from epitpu_torch.rng import PhiloxStream
 from epitpu_torch.smc import particle_filter
 
@@ -217,9 +217,9 @@ def test_kernel_family_matches_twin_on_card(name):
     x0[:, 0] += 1000.0
     th = torch.rand(b, m.theta_dim, generator=g) * 3
     x0, th = x0.cuda(), th.cuda()
-    before = tauleap_cuda.FAMILY_LAUNCHES[m.kernel.family]
+    before = _build.LAUNCHES[m.kernel.family]
     k = tauleap_cuda.simulate_lanes(m, x0, th, 3, 1, 2, 1)
     p = tauleap_cuda.simulate_lanes_reference(m, x0, th, 3, 1, 2, 1)
     torch.cuda.synchronize()
-    assert tauleap_cuda.FAMILY_LAUNCHES[m.kernel.family] == before + 1
+    assert _build.LAUNCHES[m.kernel.family] == before + 1
     assert float((k == p).all(-1).all(-1).float().mean()) >= 0.999

@@ -140,12 +140,13 @@ def test_cpu_binomial_weight_is_the_twin_bit_for_bit(combine, p_form):
     y, x = _cloud()
     p = {"0-d": torch.tensor(0.1), "float": 0.1,
          "per chain": torch.tensor([0.1, 0.0, 1.0, 0.3])[:, None, None]}[p_form]
-    before = obs_cuda.WEIGHT_LAUNCHES
+    before = dict(_build.LAUNCHES)
     got = tobs.make_binomial_obs(combine)(y, x, p)
     logs = tobs.binom_logpmf(y, x, p)
     want = torch.amin(logs, dim=-1) if combine == "min" else torch.sum(logs, dim=-1)
     assert _bits_equal(got, want)
-    assert obs_cuda.WEIGHT_LAUNCHES == before
+    assert _bits_equal(tobs.binomial_log_weight_reference(y, x, p, combine), want)
+    assert _build.LAUNCHES == before
 
 
 def test_binomial_weight_raises_off_the_cpu_and_the_card():
@@ -203,11 +204,7 @@ def test_weight_kernel_is_built_counted_and_declared():
     src = (_build.CSRC / "obs_binomial.cu").read_text()
     assert int(re.search(r"kMaxC = (\d+);", src).group(1)) == obs_cuda.MAX_COMPARTMENTS
     assert obs_cuda.COMBINES == ("min", "sum") and "use_min = combine_mode == 0" in src
-    m = re.search(r'extern "C" int epi_obs_binomial\(([^)]*)\)', src)
-    params = [p.strip() for p in m.group(1).split(",")]
-    ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
-    want = [ctypes.c_void_p if "*" in p else ctype[p.rsplit(None, 1)[0]] for p in params]
-    assert len(params) == 10 and list(_build.EPI_OBS_BINOMIAL_ARGTYPES) == want
+    assert _build.PROFILED["obs_weight"] == "obs.weight_launches"
 
 
 def test_library_build_compiles_every_cuda_source(monkeypatch, tmp_path):
@@ -351,9 +348,9 @@ def test_weight_kernel_equals_twin_on_card_at_the_edges(c, combine):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     lw = tobs.make_binomial_obs(combine)
     for label, y, x, p in _edge_cases(c, "cuda"):
-        before = obs_cuda.WEIGHT_LAUNCHES
+        before = _build.LAUNCHES["obs_weight"]
         got = lw(y, x, p)
-        assert obs_cuda.WEIGHT_LAUNCHES == before + 1
+        assert _build.LAUNCHES["obs_weight"] == before + 1
         assert _bits_equal(got.cpu(), tobs._combine(tobs.binom_logpmf(y, x, p), combine).cpu()), \
             label
         strided = torch.stack([x, x], dim=2)[:, :, -1]  # the plain route's final-state slice
