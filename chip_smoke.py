@@ -47,6 +47,19 @@ Phases, one or more lines each on stdout:
               stack; a production-preset PMMH run (40 rows): one launch a
               filter step, and its chains equal to the same seed's run on
               the twin bit for bit;
+  3d. resample_kernel  the systematic resampling step (csrc/pf_resample.cu)
+              against its plain twin on the card, bit for bit: rows of N = 1
+              to 65,536 (1, 32 and 2,048 rows; rows all -inf, with a NaN, a
+              +inf, rows that skip), both forms, a four-card shard's slices
+              of 4,096 (p0 0 and 3,072, 1,024 each); a row's result the
+              same among 1, 7 or all rows; both PMMH cells' shapes over the
+              resampling steps of K4's states, weighed and updated by the
+              two K2 kernels; its ms from idle and back to back, its device
+              us, host us a call, the twin's ms, the bound (40 bytes a
+              particle at C = 3) and its share, registers and stack; a
+              production-preset PMMH run (40 rows): one launch a resampling
+              step (every 4th filter step), and its chains equal to the
+              same seed's run on the twin bit for bit;
   4. filter   particle-filter logZ at the truth on the card against the
               host (512 replicates, N=16): SIR on the committed dataset,
               SEIR, sir_subgroups and sir_subgroups2 on the port's
@@ -157,7 +170,8 @@ at ragged lane counts;
 `advance[t_span]`: `advance` over 3 units on the card against the twin;
 `kernel[lane-map]`: the kernel under a non-identity lane map against its
 twin, and a 2-shard filter step's lanes against the unsharded launch's.
-Then a `routes:` line (hand, generated and plain launches per main path), a
+Then a `routes:` line (hand, generated and plain launches per main path, and
+the weighting's, the likelihood update's and the resampling kernel's), a
 JSON line for the kernels, and as the last line {"ok": true, "device":
 {...}}.  Phases 5-20 are the main paths: the launch counts are set to 0
 before each and read after it (in each child for 13-14, summed over
@@ -197,7 +211,7 @@ from epitpu_torch.io import (dataset_from_csv, load_pmmh_checkpoint, load_pmmh_r
 from epitpu_torch.mcmc import forecast_from_result, particle_mcmc, particle_mcmc_chains
 from epitpu_torch.models import make_model, seir_model, sir_model, sir_subgroups_model
 from epitpu_torch.observe import get_observation_model
-from epitpu_torch.ops import _build, loglik_cuda, rate_trace, tauleap_cuda
+from epitpu_torch.ops import _build, loglik_cuda, rate_trace, resample_cuda, tauleap_cuda
 from epitpu_torch.rng import PhiloxStream
 from epitpu_torch.sim import advance, simulate
 from epitpu_torch.smc import particle_filter
@@ -343,6 +357,9 @@ def _instantiation(mangled):
     m = re.search(r"loglik_(small|rows)ILi(\d+)ELb([01])E", mangled)
     if m:
         return f"loglik_{m.group(1)}<{m.group(2)},{'carry' if m.group(3) == '1' else 'resample'}>"
+    m = re.search(r"resample_(small|rows)ILi(\d+)EE", mangled)
+    if m:
+        return f"resample_{m.group(1)}<{m.group(2)}>"
     m = re.search(r"SirSubgroupsILi(\d+)ELb([01])E", mangled)
     if m:
         return f"SirSubgroups<{m.group(1)},{'T' if m.group(2) == '1' else 'F'}>"
@@ -679,14 +696,17 @@ def _time_against_twin(label, call, twin, event, ops_per_twin_launch, nbytes):
     return row
 
 
-def _pmmh_against_twin(label, model, obs, y, key, phase, module, name, twin):
+def _pmmh_against_twin(label, model, obs, y, key, phase, module, name, twin,
+                       resampling=False):
     """The production preset at WEIGHT_PMMH_ITERS rows on one seed, on hand
     kernel ``key`` and on its twin, bound for that run to ``module.name``,
     the name the program calls the kernel's wrapper by: the kernel's
     launches (``_build.LAUNCHES[key]``) == its profiling counter == the
-    spans of ``phase``, one a filter step; none on the twin; the two runs'
-    thetas and log-likelihoods equal bit for bit.  Prints them after
-    ``label``; returns the JSON entry's fields."""
+    steps it serves: the spans of ``phase``, one a filter step, or with
+    ``resampling`` the filter's resampling steps, every
+    ``resample_every``-th; none on the twin; the two runs' thetas and
+    log-likelihoods equal bit for bit.  Prints them after ``label``;
+    returns the JSON entry's fields."""
     from epitpu_torch import profiling
 
     cfg = PRESETS["production"]()
@@ -712,9 +732,13 @@ def _pmmh_against_twin(label, model, obs, y, key, phase, module, name, twin):
                          steps=names.count(phase), filters=names.count("pf_scan"))
     k, tw = runs["kernel"], runs["twin"]
     t_len = y.shape[0]
-    check(k["launches"] == k["counter"] == k["steps"] == (t_len - 1) * k["filters"],
+    every = kw["resample_every"] if resampling else 1
+    served = k["filters"] * ((t_len - 1) // every)
+    what = f"resampling steps (every {every}th)" if resampling else "filter steps"
+    check(k["launches"] == k["counter"] == served and k["steps"] == (t_len - 1) * k["filters"],
           f"{label}: launches {k['launches']}, counter {k['counter']}, filter steps "
-          f"{k['steps']}, filters {k['filters']} x {t_len - 1}: not one launch a filter step")
+          f"{k['steps']}, filters {k['filters']} x {t_len - 1}: not one launch a "
+          f"{'resampling' if resampling else 'filter'} step")
     check(tw["launches"] == 0 and tw["steps"] == k["steps"],
           f"{label}: the twin's run launched {tw['launches']} and made {tw['steps']} filter "
           f"steps")
@@ -725,7 +749,7 @@ def _pmmh_against_twin(label, model, obs, y, key, phase, module, name, twin):
     print(f"{label}[pmmh]: production preset, {kw['n_chains']} chains x {kw['n_particles']} x "
           f"{kw['n_iters']} rows, same seed: thetas and log-likelihoods == the twin's bit for "
           f"bit; {k['launches']} launches == {_build.PROFILED[key]} {k['counter']} == "
-          f"{k['steps']} filter steps ({k['filters']} filters x {t_len - 1}, init search "
+          f"{served} {what} ({k['filters']} filters x {(t_len - 1) // every}, init search "
           f"included); {rate['kernel']:.1f} iters/s against {rate['twin']:.1f} on the twin",
           flush=True)
     return dict(pmmh_launches=k["launches"], pmmh_filter_steps=k["steps"],
@@ -876,6 +900,126 @@ def phase_loglik_kernel(model, obs, y):
     return dict(rows=rows_out, registers=regs,
                 **_pmmh_against_twin("loglik_kernel", model, obs, y, "pf_loglik", "pf_loglik",
                                      pf, "loglik_update", twin))
+
+
+# ---- the resampling step (csrc/pf_resample.cu) ---------------------------------
+
+RESAMPLE_SIZES = (1, 2, 3, 15, 16, 17, 31, 32, 33, 64, 513, 1000, 4096, 5000, 8191, 8192,
+                  8193, 20000, 65536)
+RESAMPLE_SLICES = ((4096, 0, 1024), (4096, 3072, 1024))  # a four-card shard's particles
+RESAMPLE_EVERY = 4  # the PMMH cells' resample_every
+
+
+def _resample_bytes(c):
+    """A particle's bytes in the carry form: read lw and x, write anc (int64),
+    x_res and lw'."""
+    return 4 + 4 * c + 8 + 4 * c + 4
+
+
+def _resample_inputs(rows, n, gen, c=3):
+    """(lw, u, x, skip) on the card: log-weights with some -inf, uniforms, a
+    cloud of counts, a third of the rows marked to skip; from 5 rows, rows
+    all -inf, with a NaN, with a +inf."""
+    lw = torch.randn((rows, n), generator=gen, device=DEV) * 4.0 - 12.0
+    lw[torch.rand((rows, n), generator=gen, device=DEV) < 0.05] = -math.inf
+    u = torch.rand((rows, 1), generator=gen, device=DEV)
+    x = torch.floor(torch.rand((rows, n, c), generator=gen, device=DEV) * 5000.0)
+    skip = torch.rand(rows, generator=gen, device=DEV) < 0.33
+    if rows >= 5:
+        lw[0] = -math.inf
+        lw[1, n // 2] = math.nan
+        lw[2, 0] = math.inf
+    return lw, u, x, skip
+
+
+def _resample_equal(got, want):
+    """(anc, x_res, lw' or None) equal bit for bit."""
+    (anc, x_res, lw), (anc0, x_res0, lw0) = got, want
+    return (torch.equal(anc.cpu(), anc0.cpu()) and _same_bits(x_res, x_res0)
+            and ((lw is None and lw0 is None) or _same_bits(lw, lw0)))
+
+
+def phase_resample_kernel(model, obs, y):
+    """csrc/pf_resample.cu against its twin on the card, bit for bit: rows of
+    every size class in both forms, a four-card shard's slices, a row's
+    independence of the others, and both PMMH cells' shapes over the
+    resampling steps of K4's states; its time beside the twin's and the
+    bound; the launches of a production-preset PMMH run, and that run's
+    chains equal to the same seed's run on the twin."""
+    twin = resample_cuda.systematic_step_reference
+    step = resample_cuda.systematic_step
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    cases = 0
+    for n in RESAMPLE_SIZES:
+        for rows in (1, 32, 2048):
+            if rows * n > 2048 * 4096:
+                continue
+            lw, u, x, skip = _resample_inputs(rows, n, gen)
+            for form in (None, skip):
+                check(_resample_equal(step(lw, u, x, form), twin(lw, u, x, form)),
+                      f"resample kernel {rows} x {n} {'resample' if form is None else 'carry'}: "
+                      f"differs from the twin")
+                cases += 1
+        rows = 2048 if n <= 4096 else 32
+        lw, u, x, skip = _resample_inputs(rows, n, gen)
+        every = step(lw, u, x, skip)
+        for size, start in ((1, 0), (1, rows - 1), (7, 3), (7, rows - 7)):
+            part = slice(start, start + size)
+            check(_resample_equal(step(lw[part], u[part], x[part], skip[part]),
+                                  [t[part] for t in every]),
+                  f"resample kernel at N = {n}: rows {start}..{start + size} among {rows} "
+                  f"differ from the same rows alone")
+    for n, p0, n_local in RESAMPLE_SLICES:
+        lw, u, x, skip = _resample_inputs(32, n, gen)
+        for form in (None, skip):
+            got = step(lw, u, x, form, p0, n_local)
+            every = step(lw, u, x, form)
+            mine = slice(p0, p0 + n_local)
+            check(_resample_equal(got, twin(lw, u, x, form, p0, n_local))
+                  and _resample_equal(got, (every[0][:, mine], every[1][:, mine], every[2])),
+                  f"resample kernel, particles {p0}.. of 32 x {n}: differ from the twin or "
+                  f"from the unsharded slice")
+            cases += 1
+    print(f"resample_kernel: == twin bit for bit in {cases} cases, both forms (N = "
+          f"{', '.join(map(str, RESAMPLE_SIZES))}; 1, 32 and 2,048 rows; rows all -inf, NaN, "
+          f"+inf, skipped; particles 0.. and 3,072.. (1,024) of 32 x 4,096 == the unsharded "
+          f"slice); rows 1 and 7 alone == among all", flush=True)
+    regs = [part for part in _ptxas_report(_build.BUILD_INFO.get("ptxas", "")).split(", ")
+            if part.startswith("resample_")]
+    print(f"resample_kernel: registers/stack bytes/spill-store bytes: {', '.join(regs)}",
+          flush=True)
+    rows_out = []
+    p = torch.tensor(0.1, device=DEV)
+    for chains, n in WEIGHT_CELLS:
+        log_n = math.log(n)
+        lw = torch.full((chains, n), -log_n, device=DEV)
+        log_z = torch.zeros(chains, device=DEV)
+        steps = 0
+        for t, (yt, x) in enumerate(_weight_states(model, chains, n, y.to(DEV), gen)):
+            log_z, lw, degen = loglik_cuda.loglik_update(obs(yt, x, p), log_z, log_n, lw)
+            if (t + 1) % RESAMPLE_EVERY:
+                continue
+            lw_new, u = lw, torch.rand((chains, 1), generator=gen, device=DEV)
+            got = step(lw_new, u, x, degen)
+            check(_resample_equal(got, twin(lw_new, u, x, degen)),
+                  f"resample kernel at {chains} x {n}, step {t}: differs from the twin")
+            lw = got[2]
+            steps += 1
+        c = x.shape[-1]
+        label = (f"resample_kernel[{chains} x {n}]: == twin bit for bit at {steps} resampling "
+                 f"steps of K4's states (carry form)")
+        rows_out.append(dict(shape=f"{chains} x {n} x {c}", particles=chains * n,
+                             steps_checked=steps,
+                             **_time_against_twin(label, lambda: step(lw_new, u, x, degen),
+                                                  lambda: twin(lw_new, u, x, degen),
+                                                  "resample_", 0,
+                                                  chains * n * _resample_bytes(c))))
+    from epitpu_torch.smc import filter as pf
+
+    return dict(rows=rows_out, registers=regs,
+                **_pmmh_against_twin("resample_kernel", model, obs, y, "pf_resample",
+                                     "pf_resample", pf, "systematic_step", twin,
+                                     resampling=True))
 
 
 def _sm_clock():
@@ -2617,15 +2761,17 @@ def hand_entry(name, key, source, result):
         "route": "cuda",
         "kernel_route": "hand",
         "source": source,
-        # epitpu leaves the weighting (epitpu/observe/models.py:28-97) and the
-        # update (epitpu/smc/filter.py:208-233) to XLA's fusion
+        # epitpu leaves the weighting (epitpu/observe/models.py:28-97), the
+        # update (epitpu/smc/filter.py:208-233) and the resampling
+        # (epitpu/smc/resample.py:systematic_resample, the gather at
+        # epitpu/smc/filter.py:172) to XLA
         "replaces": None,
         "launches": sum(p.get(key, 0) for p in PATH_LAUNCHES.values()),
         "launches_by_path": {n: p[key] for n, p in PATH_LAUNCHES.items() if p.get(key)},
         "max_abs_err": 0.0,  # bit for bit
         **{k: main[k] for k in ("ms", "b2b_ms", "plain_ms", "bound_ms", "bound_by",
                                 "bound_share")},
-        "library_ms": None,  # no single PyTorch call computes either
+        "library_ms": None,  # no single PyTorch call computes any of them
         "cases": result["rows"],
         **{k: result[k] for k in ("registers", "pmmh_launches", "pmmh_filter_steps")
            if k in result},
@@ -2646,6 +2792,7 @@ def main():
     y = dataset_from_csv(os.path.join(DATA, "dataset.csv"), DEV)
     weight = timed("weight_kernel", phase_weight_kernel, model, obs, y)
     loglik = timed("loglik_kernel", phase_loglik_kernel, model, obs, y)
+    resample = timed("resample_kernel", phase_resample_kernel, model, obs, y)
     timed("filter", phase_filter, obs, y)
     prod = on_main_path("pmmh", ["sir"], phase_pmmh, model, obs, y)
     on_main_path("forecast", ["sir"], phase_forecast, model, obs, y)
@@ -2681,16 +2828,19 @@ def main():
     timed("multichip[1 card]", phase_multichip)
     routes = {name: {"hand": sum(p.get(f, 0) for f in tauleap_cuda.FAMILIES),
                      "generated": p.get("generated", 0), "plain": p.get("plain", 0),
-                     "obs_weight": p.get("obs_weight", 0), "pf_loglik": p.get("pf_loglik", 0)}
+                     "obs_weight": p.get("obs_weight", 0), "pf_loglik": p.get("pf_loglik", 0),
+                     "pf_resample": p.get("pf_resample", 0)}
               for name, p in PATH_LAUNCHES.items()}
     print(f"routes: launches (plain: calls of the twin on the card; obs_weight: the "
-          f"weighting kernel's; pf_loglik: the likelihood-update kernel's) per main path: "
-          f"{json.dumps(routes)}", flush=True)
+          f"weighting kernel's; pf_loglik: the likelihood-update kernel's; pf_resample: the "
+          f"resampling kernel's) per main path: {json.dumps(routes)}", flush=True)
     print(f"phase seconds (host clock): {json.dumps(PHASE_SECONDS)}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s on {smi}", flush=True)
     hand = [hand_entry("obs_binomial_kernel", "obs_weight", "epitpu_torch/csrc/obs_binomial.cu",
                        weight),
-            hand_entry("loglik_kernel", "pf_loglik", "epitpu_torch/csrc/pf_loglik.cu", loglik)]
+            hand_entry("loglik_kernel", "pf_loglik", "epitpu_torch/csrc/pf_loglik.cu", loglik),
+            hand_entry("resample_kernel", "pf_resample", "epitpu_torch/csrc/pf_resample.cu",
+                       resample)]
     print(json.dumps({"kernels": kernel_entries(rows) + hand, "routes": routes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,14 +2,14 @@
 
 ``nvcc`` compiles ``epitpu_torch/csrc/tauleap.cu`` (the kernel template of
 ``tauleap_kernel.cuh`` on the hand-written functors), ``obs_binomial.cu``
-(the binomial observation weight) and ``pf_loglik.cu`` (the filter's
-likelihood update) for Hopper
-(``sm_90a``) into one ``epitpu_torch/_build/libepitpu_kernels-<hash>.so``, a
+(the binomial observation weight), ``pf_loglik.cu`` (the filter's
+likelihood update) and ``pf_resample.cu`` (its systematic resampling step)
+for Hopper (``sm_90a``) into one ``epitpu_torch/_build/libepitpu_kernels-<hash>.so``, a
 plain C interface loaded with ``ctypes``; the file name carries a hash of
 the sources and the flags, so an edited source builds anew.  No PyTorch
 headers are compiled, which keeps the build to seconds.  ``ENTRIES`` holds
 the ctypes signature of every C entry, and ``launch`` is the one way the
-wrappers (``tauleap_cuda``, ``obs_cuda``, ``loglik_cuda``) call one: on the
+wrappers (``tauleap_cuda``, ``obs_cuda``, ``loglik_cuda``, ``resample_cuda``) call one: on the
 card's current stream, its return code checked, counted in ``LAUNCHES``.
 
 A model without a hand-written functor gets its own library: the functor
@@ -43,7 +43,8 @@ from .. import profiling
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("tauleap.cu", "tauleap_kernel.cuh", "obs_binomial.cu", "pf_loglik.cu")
+SOURCES = ("tauleap.cu", "tauleap_kernel.cuh", "obs_binomial.cu", "pf_loglik.cu",
+           "pf_resample.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
@@ -133,18 +134,28 @@ ENTRIES = {
         ctypes.c_longlong, ctypes.c_int, ctypes.c_double,  # rows, N, log N
         ctypes.c_void_p,  # cudaStream_t
     ),
+    "epi_pf_resample": (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # lw, u, skip, x
+        ctypes.c_void_p, ctypes.c_void_p,  # anc, x_res
+        ctypes.c_void_p, ctypes.c_void_p,  # lw_next (null with skip), scratch (or null)
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # rows, N, C
+        ctypes.c_int, ctypes.c_int, ctypes.c_double,  # p0, n_local, log N
+        ctypes.c_void_p,  # cudaStream_t
+    ),
     "epi_traj_generated": _TRAJ_LAUNCH,
 }
 GENERATED = "epi_traj_generated"
 
 # the hand-written kernels' launches in this process: K4's by family
 # (tauleap_cuda.FAMILIES) and on generated functors, the binomial weighting's
-# ("obs_weight") and the likelihood update's ("pf_loglik"); "plain" counts
-# the calls of K4's twin on the card (tauleap_cuda.route), which launch none
+# ("obs_weight"), the likelihood update's ("pf_loglik") and the resampling
+# step's ("pf_resample"); "plain" counts the calls of K4's twin on the card
+# (tauleap_cuda.route), which launch none
 LAUNCHES = dict.fromkeys(("sir", "seir", "sir_subgroups", "generated", "plain", "obs_weight",
-                          "pf_loglik"), 0)
+                          "pf_loglik", "pf_resample"), 0)
 # the epitpu_torch.profiling counter a launch adds to as well
-PROFILED = {"obs_weight": "obs.weight_launches", "pf_loglik": "pf.loglik_launches"}
+PROFILED = {"obs_weight": "obs.weight_launches", "pf_loglik": "pf.loglik_launches",
+            "pf_resample": "pf.resample_launches"}
 
 
 def bind(lib, *names):

@@ -67,8 +67,9 @@ DIST_SPANS = ("dist_gather",)
 # launches of the binomial observation kernel (epitpu_torch/ops/obs_cuda.py);
 # all-gathers over a mesh group, and the bytes of their gathered outputs;
 # launches of the likelihood-update kernel (epitpu_torch/ops/loglik_cuda.py)
+# and of the resampling kernel (epitpu_torch/ops/resample_cuda.py)
 COUNTERS = ("abc.batches", "abc.host_copies", "obs.weight_launches", "dist.gathers",
-            "dist.gather_bytes", "pf.loglik_launches")
+            "dist.gather_bytes", "pf.loglik_launches", "pf.resample_launches")
 
 NULL_SCOPE = contextlib.nullcontext()
 

@@ -13,7 +13,11 @@ binomial weighting is one launch of its kernel a step on the card
 (``epitpu_torch.observe.make_binomial_obs``), and so is the likelihood
 update (``epitpu_torch.ops.loglik_cuda.loglik_update``: the log-sum-exp, the
 increment of logZ and the normalized carry, in a fixed order of summation
-that depends on N alone); resampling is plain torch.  Each phase runs in
+that depends on N alone), and so is a resampling step of the systematic kind
+(``epitpu_torch.ops.resample_cuda.systematic_step``: the ancestors, the
+cloud's gather and the carried weights' reset, its sums also in an order
+fixed by N; the uniforms stay a ``torch.rand`` of the filter's generator);
+the other kinds of resampling are plain torch.  Each phase runs in
 the ``epitpu_torch.profiling.scope`` of epitpu's named scope (``pf_init``,
 ``pf_scan`` and, inside it, ``pf_weight``, ``pf_loglik``, ``pf_resample``,
 ``pf_propagate``).
@@ -28,10 +32,11 @@ gathers the cloud; and the tau-leap kernel's lane map gives each lane the
 Philox counter of the same particle unsharded.  On the card the rounding
 of a torch reduction or cumulative sum along a row follows the number of
 rows (PyTorch splits a row over more blocks when there are fewer rows), so a
-chain shard runs its ESS and resampling at the unsharded row count, its rows
-at their global place among every chain's rows; the likelihood update's
-rows depend on nothing but their own values and N.  So the gathered result
-equals the unsharded run's bit for bit.
+chain shard runs its ESS and the plain kinds of resampling at the unsharded
+row count, its rows at their global place among every chain's rows; the
+likelihood update's and the systematic step's rows depend on nothing but
+their own values and N, so they run on the shard's rows alone.  So the
+gathered result equals the unsharded run's bit for bit.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import torch
 
 from ..models.base import CompartmentModel
 from ..ops.loglik_cuda import loglik_update
+from ..ops.resample_cuda import systematic_step
 from ..profiling import scope
 from ..sim.samplers import PHILOX_SAMPLERS
 from ..sim.tauleap import advance
@@ -154,8 +160,20 @@ def particle_filter(
     def unsharded_rows(fn, t):
         return at_global_rows(fn, t, c0, n_rows)
 
-    def resample(t):
-        return unsharded_rows(lambda t: resample_particles(resampling, t, generator)[0], t)
+    def resample(t, x, skip=None):
+        """(this shard's ancestors, their states, the carried log-weights
+        after: ``-log N`` but where ``skip``, None without it) of a
+        resampling step on the log-weights ``t [chains, N]``."""
+        if resampling == "systematic":
+            u = torch.rand((n_rows, 1), generator=generator, device=device, dtype=t.dtype)
+            return systematic_step(t, u[c0:c0 + chains], across(x), skip, p0, n_local)
+        anc = unsharded_rows(lambda t: resample_particles(resampling, t, generator)[0], t)
+        if skip is not None:
+            anc = torch.where(skip[:, None], iota, anc)
+        anc = mine(anc)
+        lw_next = None if skip is None else torch.where(
+            skip[:, None], t, torch.full_like(t, -log_n))
+        return anc, gather(across(x), anc), lw_next
 
     with scope("pf_init"):
         if x0 is None:
@@ -185,25 +203,19 @@ def particle_filter(
                 with scope("pf_loglik"):
                     log_z, _, step_degen = loglik_update(logw, log_z, log_n)
                 with scope("pf_resample"):
-                    anc = mine(resample(logw))
-                    x_res = gather(across(x), anc)
+                    anc, x_res, _ = resample(logw, x)
                 lw_next = lw
             else:
                 with scope("pf_loglik"):
                     log_z, lw_new, step_degen = loglik_update(logw, log_z, log_n, lw)
                 with scope("pf_resample"):
                     if (p + 1) % resample_every == 0:
-                        anc_r = resample(lw_new)
+                        skip = step_degen
                         if conditional:
                             ess = 1.0 / unsharded_rows(
                                 lambda t: torch.sum(torch.exp(2.0 * t), dim=-1), lw_new)
-                            need = (ess < resample_threshold * n_particles) & ~step_degen
-                        else:
-                            need = ~step_degen
-                        anc = mine(torch.where(need[:, None], anc_r, iota))
-                        x_res = gather(across(x), anc)
-                        lw_next = torch.where(need[:, None], torch.full_like(lw_new, -log_n),
-                                              lw_new)
+                            skip = skip | ~(ess < resample_threshold * n_particles)
+                        anc, x_res, lw_next = resample(lw_new, x, skip)
                     else:
                         anc, x_res, lw_next = mine(iota), x, lw_new
             with scope("pf_propagate"):

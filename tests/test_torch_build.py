@@ -14,7 +14,8 @@ from epitpu_torch.ops import _build, rate_trace
 
 C_TYPES = {"int": ctypes.c_int, "uint32_t": ctypes.c_uint32, "float": ctypes.c_float,
            "long long": ctypes.c_longlong, "double": ctypes.c_double}
-PARAMS = {"epi_traj": 24, "epi_traj_generated": 21, "epi_obs_binomial": 10, "epi_pf_loglik": 10}
+PARAMS = {"epi_traj": 24, "epi_traj_generated": 21, "epi_obs_binomial": 10, "epi_pf_loglik": 10,
+          "epi_pf_resample": 15}
 
 
 def _entries(text):
@@ -89,7 +90,7 @@ def _stand_in(rc, calls, card):
     return epi_stand_in
 
 
-@pytest.mark.parametrize("key", ["sir", "obs_weight", "pf_loglik"])
+@pytest.mark.parametrize("key", ["sir", "obs_weight", "pf_loglik", "pf_resample"])
 def test_launch_passes_the_stream_and_counts_once(card, key):
     calls = []
     before = dict(_build.LAUNCHES)

@@ -222,7 +222,7 @@ def test_library_build_compiles_every_cuda_source(monkeypatch, tmp_path):
     (cmd,) = seen
     units = [a for a in cmd if a.endswith((".cu", ".cuh"))]
     assert units == [str(_build.CSRC / name) for name in
-                     ("tauleap.cu", "obs_binomial.cu", "pf_loglik.cu")]
+                     ("tauleap.cu", "obs_binomial.cu", "pf_loglik.cu", "pf_resample.cu")]
     assert "--fmad=false" in cmd and "-O3" in cmd and "arch=compute_90a,code=sm_90a" in cmd
 
 

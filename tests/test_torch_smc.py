@@ -16,6 +16,7 @@ from epitpu.smc import paths as jpaths
 from epitpu.smc import resample as jres
 from epitpu_torch.io import dataset_from_csv
 from epitpu_torch.models import sir_model
+from epitpu_torch.ops.resample_cuda import systematic_step_reference
 from epitpu_torch.observe import get_observation_model
 from epitpu_torch.rng import PhiloxStream
 from epitpu_torch.smc import (
@@ -57,6 +58,27 @@ def test_ancestors_equal_epitpu_given_same_uniforms(kind, n):
         got, degen = multinomial_resample(torch.from_numpy(np.array(u)), torch.from_numpy(lw))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert not degen.any()
+
+
+@pytest.mark.parametrize("n", [1, 16, 33, 1000, 4096])
+def test_resampling_kernels_twin_equals_epitpu_given_same_uniforms(n):
+    """The resampling kernel's plain twin (``ops.resample_cuda``) draws
+    epitpu's ancestors from epitpu's uniforms where every running sum is
+    exact (weights 2^-e or 0), in any order of summation."""
+    rng = np.random.default_rng(n)
+    e = rng.integers(0, 9, size=(5, n))
+    lw = (-e * np.log(2.0)).astype(np.float32)
+    lw[rng.random((5, n)) < 0.1] = -np.inf
+    lw[:, rng.integers(0, n)] = 0.0
+    lw[4] = -np.inf  # degenerate: identity
+    key = jax.random.PRNGKey(n)
+    ref, ref_degen = jres.systematic_resample(key, jnp.asarray(lw))
+    u = torch.from_numpy(np.array(jax.random.uniform(key, shape=(5, 1))))
+    x = torch.arange(5 * n * 3, dtype=torch.float32).reshape(5, n, 3)
+    anc, x_res, _ = systematic_step_reference(torch.from_numpy(lw), u, x)
+    np.testing.assert_array_equal(anc.numpy(), np.asarray(ref))
+    assert np.asarray(ref_degen).tolist() == [False] * 4 + [True]
+    assert torch.equal(x_res, torch.gather(x, 1, anc[..., None].expand(5, n, 3)))
 
 
 def test_searchsorted_and_compare_reduce_agree(monkeypatch):
