@@ -634,27 +634,28 @@ def _weight_edges(gen):
     return cases
 
 
-def _weight_states(model, chains, n, y, gen):
+def _weight_states(model, chains, n, y, gen, truth=TRUTH):
     """The tau-leap's own states at the filter's shape: the initial cloud and
-    each of the T - 1 steps after it (no resampling), one row of y each."""
+    each of the T - 1 steps after it at theta ``truth`` (no resampling), one
+    row of y each."""
     from epitpu_torch.sim.tauleap import advance
 
     x = model.init_fn(gen, (chains, n), POP, 20.0).to(torch.float32).contiguous()
-    theta = torch.tensor(TRUTH, device=DEV).expand(chains, 2)[:, None, :]
+    theta = torch.tensor(truth, device=DEV).expand(chains, len(truth))[:, None, :]
     stream = PhiloxStream(SEED + 7, DEV)
     for t in range(y.shape[0] - 1):
         yield y[t], x
         x = advance(model, x, theta, stream, 20, "fast", gen)
 
 
-def _time_against_twin(label, call, twin, event, ops_per_twin_launch, nbytes):
+def _time_against_twin(label, call, twin, event, ops_per_twin_launch, nbytes, ops=None):
     """A hand kernel's ``call`` against its twin's on the card: the kernel's
     ms for one call from idle and back to back (CUDA events around the
     Python call), its device us (the profiler's events whose name holds
     ``event``, median of 20), the host's us a call, the twin's ms and device
     launches, the bound (``ops_per_twin_launch`` operations for each of the
-    twin's launches, ``nbytes`` bytes, at the H100's peaks) and its shares.
-    Prints them after ``label``; returns them."""
+    twin's launches, or ``ops`` in all, and ``nbytes`` bytes, at the H100's
+    peaks) and its shares.  Prints them after ``label``; returns them."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         twin()
@@ -677,7 +678,7 @@ def _time_against_twin(label, call, twin, event, ops_per_twin_launch, nbytes):
         call()
     host_us = (time.perf_counter() - t0) / 200 * 1e6
     torch.cuda.synchronize()
-    bound_ops = twin_ops * ops_per_twin_launch / OPS_PER_S * 1e3
+    bound_ops = (twin_ops * ops_per_twin_launch if ops is None else ops) / OPS_PER_S * 1e3
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops, bound_bytes)
     row = dict(ms=ms, b2b_ms=b2b, device_us=device_us, host_us=host_us, plain_ms=plain_ms,
@@ -1020,6 +1021,105 @@ def phase_resample_kernel(model, obs, y):
                 **_pmmh_against_twin("resample_kernel", model, obs, y, "pf_resample",
                                      "pf_resample", pf, "systematic_step", twin,
                                      resampling=True))
+
+
+# ---- the benchmark's SEIR cell (seir_binomial.chains2048) ------------------------
+
+SEIR_CELL = (2048, 32)  # chains x particles
+SEIR_TRUTH = (4.0, 1.0, 1.0)  # the seir_underreported preset's theta
+
+
+def phase_seir_cell():
+    """The hand kernels at the benchmark's SEIR cell's shapes (2,048 chains x
+    32 particles, C = 4, R = 3): the weighting, the likelihood update and the
+    resampling step against their twins bit for bit at every filter step of
+    K4's SEIR states (the carry form, a resampling every 4th step), each
+    timed at the last; K4's Seir functor at the cell's 65,536 lanes x 20
+    substeps, final state, against its twin and timed, with its launch's K4
+    counters.  Returns the four timed rows."""
+    from epitpu_torch import profiling
+    from epitpu_torch.observe import models
+
+    model = seir_model()
+    chains, n = SEIR_CELL
+    y, _ = generate_dataset(PRESETS["seir_underreported"]())
+    y = torch.as_tensor(np.asarray(y), dtype=torch.float32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    p = torch.tensor(0.1, device=DEV)
+    weigh = models.make_binomial_obs("min")
+    weigh_twin = functools.partial(models.binomial_log_weight_reference, combine="min")
+    update, update_twin = loglik_cuda.loglik_update, loglik_cuda.loglik_update_reference
+    step, step_twin = resample_cuda.systematic_step, resample_cuda.systematic_step_reference
+    log_n = math.log(n)
+    lw = torch.full((chains, n), -log_n, device=DEV)
+    log_z = torch.zeros(chains, device=DEV)
+    steps = resamplings = 0
+    for t, (yt, x) in enumerate(_weight_states(model, chains, n, y, gen, SEIR_TRUTH)):
+        logw = weigh(yt, x, p)
+        check(_same_bits(logw, weigh_twin(yt, x, p)),
+              f"seir cell: the weighting at step {t} differs from its twin")
+        got = update(logw, log_z, log_n, lw)
+        check(_loglik_equal(got, update_twin(logw, log_z, log_n, lw)),
+              f"seir cell: the likelihood update at step {t} differs from its twin")
+        log_z_prev, lw_prev = log_z, lw
+        log_z, lw, degen = got
+        steps += 1
+        if (t + 1) % RESAMPLE_EVERY:
+            continue
+        lw_new, u = lw, torch.rand((chains, 1), generator=gen, device=DEV)
+        got = step(lw_new, u, x, degen)
+        check(_resample_equal(got, step_twin(lw_new, u, x, degen)),
+              f"seir cell: the resampling step at step {t} differs from its twin")
+        lw = got[2]
+        resamplings += 1
+    particles, c = chains * n, x.shape[-1]
+    shape = f"{chains} x {n} x {c}"
+    rows = {}
+    rows["weight"] = dict(shape=shape, particles=particles, steps_checked=steps, **_time_against_twin(
+        f"seir_cell[weight {shape}]: == twin bit for bit at {steps} filter steps of K4's SEIR "
+        f"states", lambda: weigh(yt, x, p), lambda: weigh_twin(yt, x, p),
+        "obs_binomial_kernel", particles * c, particles * (4 * c + 4)))
+    rows["loglik"] = dict(shape=f"{chains} x {n}", particles=particles, steps_checked=steps,
+                          **_time_against_twin(
+        f"seir_cell[loglik {chains} x {n}]: == twin bit for bit at {steps} filter steps (carry "
+        f"form)", lambda: update(logw, log_z_prev, log_n, lw_prev),
+        lambda: update_twin(logw, log_z_prev, log_n, lw_prev), "loglik_", 0,
+        particles * LOGLIK_BYTES))
+    rows["resample"] = dict(shape=shape, particles=particles, steps_checked=resamplings,
+                            **_time_against_twin(
+        f"seir_cell[resample {shape}]: == twin bit for bit at {resamplings} resampling steps "
+        f"(carry form)", lambda: step(lw_new, u, x, degen),
+        lambda: step_twin(lw_new, u, x, degen), "resample_", 0, particles * _resample_bytes(c)))
+    # K4 on the last states, a theta row a chain, as the filter launches it
+    sim, twin = tauleap_cuda.simulate_lanes, tauleap_cuda.simulate_lanes_reference
+    x0 = x.reshape(particles, c).contiguous()
+    theta = torch.tensor(SEIR_TRUTH, device=DEV).expand(chains, 3).contiguous()
+    seed, off = SEED + 22, 7
+    k1, p1 = (f(model, x0, theta, seed, off, 1, 1, True, n) for f in (sim, twin))
+    same_1sub = float((k1 == p1).all(-1).float().mean())
+    work = {}
+    k, pl = sim(model, x0, theta, seed, off, 1, 20, True, n), twin(model, x0, theta, seed, off,
+                                                                  1, 20, True, n, work=work)
+    same = float((k == pl).all(-1).float().mean())
+    check(same_1sub >= 0.999 and bool((k.sum(-1) == x0.sum(-1)).all()),
+          f"seir cell: K4's Seir matches its twin in {same_1sub:.5f} of lanes after one substep, "
+          f"or does not conserve the population")
+    with profiling.recording() as rec:
+        sim(model, x0, theta, seed, off, 1, 20, True, n)
+    counts = {name: rec.counters.get(name) for name in
+              ("k4.launches", "k4.thread_slots", "k4.reaction_slots")}
+    check(counts == {"k4.launches": 1, "k4.thread_slots": 4 * particles,
+                     "k4.reaction_slots": 3 * particles},
+          f"seir cell: one Seir launch counted {counts}")
+    bound_ms, by, ops, nbytes = bound(model, particles, 1, chains, True, work)
+    rows["k4"] = dict(shape=f"{particles} x 20, final", lanes=particles, same_1sub=same_1sub,
+                      same_full=same, counters=counts, **_time_against_twin(
+        f"seir_cell[k4 Seir {particles} x 20, final]: {same_1sub:.6f} of lanes == twin after 1 "
+        f"substep, {same:.6f} after 20; counters {counts}",
+        lambda: sim(model, x0, theta, seed, off, 1, 20, True, n),
+        lambda: twin(model, x0, theta, seed, off, 1, 20, True, n), "traj_kernel", 0, nbytes,
+        ops=ops))
+    return rows
 
 
 def _sm_clock():
@@ -2793,6 +2893,7 @@ def main():
     weight = timed("weight_kernel", phase_weight_kernel, model, obs, y)
     loglik = timed("loglik_kernel", phase_loglik_kernel, model, obs, y)
     resample = timed("resample_kernel", phase_resample_kernel, model, obs, y)
+    seir_cell = timed("seir_cell", phase_seir_cell)
     timed("filter", phase_filter, obs, y)
     prod = on_main_path("pmmh", ["sir"], phase_pmmh, model, obs, y)
     on_main_path("forecast", ["sir"], phase_forecast, model, obs, y)
@@ -2841,7 +2942,8 @@ def main():
             hand_entry("loglik_kernel", "pf_loglik", "epitpu_torch/csrc/pf_loglik.cu", loglik),
             hand_entry("resample_kernel", "pf_resample", "epitpu_torch/csrc/pf_resample.cu",
                        resample)]
-    print(json.dumps({"kernels": kernel_entries(rows) + hand, "routes": routes}), flush=True)
+    print(json.dumps({"kernels": kernel_entries(rows) + hand, "routes": routes,
+                      "seir_cell": seir_cell}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -155,7 +155,8 @@ LAUNCHES = dict.fromkeys(("sir", "seir", "sir_subgroups", "generated", "plain", 
                           "pf_loglik", "pf_resample"), 0)
 # the epitpu_torch.profiling counter a launch adds to as well
 PROFILED = {"obs_weight": "obs.weight_launches", "pf_loglik": "pf.loglik_launches",
-            "pf_resample": "pf.resample_launches"}
+            "pf_resample": "pf.resample_launches",
+            **dict.fromkeys(("sir", "seir", "sir_subgroups", "generated"), "k4.launches")}
 
 
 def bind(lib, *names):

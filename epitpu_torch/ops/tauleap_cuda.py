@@ -32,7 +32,9 @@ pallas_simulate_supported``):
 A launch that fails raises; nothing retries on another route.
 ``_build.LAUNCHES`` counts the kernel launches per family (and
 ``"generated"``) and the plain route's calls (``"plain"``); ``launches()``
-sums the kernel launches.
+sums the kernel launches.  While a recording is open or a profiler runs, a
+launch adds to the counters ``k4.launches``, ``k4.thread_slots`` and
+``k4.reaction_slots`` (``draw_slots``); the plain route counts none.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ import weakref
 
 import torch
 
+from .. import profiling
 from ..models.base import CompartmentModel
 from ..rng import lane_draws, seed_key
 from ..sim.samplers import binomial_from_draws
@@ -91,6 +94,16 @@ def launch_geometry(reactions: int, lanes: int, sms: int = 132):
             threads = t
             break
     return group, threads, max(1, -(-need // threads))
+
+
+def draw_slots(reactions: int, lanes: int, group: int):
+    """``(thread slots, reaction slots)`` of one launch of ``lanes`` lanes
+    in groups of ``group`` threads (``launch_geometry``): a thread draws in
+    passes of its lane's reactions t, t + group, ..., so each of a lane's
+    ``group`` threads holds one slot a pass, and ``reactions`` of those
+    slots draw."""
+    passes = -(-reactions // group)
+    return lanes * group * passes, lanes * reactions
 
 
 @functools.lru_cache(maxsize=None)
@@ -243,4 +256,7 @@ def simulate_lanes(model: CompartmentModel, x0, theta, seed: int, offset: int,
     _build.launch(entry, key, x0.device, *lead, x0.data_ptr(), theta.data_ptr(), out.data_ptr(),
                   b, theta.shape[1], lpt, k0, k1, int(offset), *lane_map, t_max, n_sub, dt,
                   int(final_only), group, threads, blocks)
+    thread_slots, reaction_slots = draw_slots(model.num_reactions, b, group)
+    profiling.count("k4.thread_slots", thread_slots)
+    profiling.count("k4.reaction_slots", reaction_slots)
     return out

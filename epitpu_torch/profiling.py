@@ -67,11 +67,17 @@ DIST_SPANS = ("dist_gather",)
 # launches of the binomial observation kernel (epitpu_torch/ops/obs_cuda.py);
 # all-gathers over a mesh group, and the bytes of their gathered outputs;
 # launches of the likelihood-update kernel (epitpu_torch/ops/loglik_cuda.py)
-# and of the resampling kernel (epitpu_torch/ops/resample_cuda.py)
+# and of the resampling kernel (epitpu_torch/ops/resample_cuda.py); launches
+# of the tau-leap kernel K4 (epitpu_torch/ops/tauleap_cuda.py), any family or
+# generated functor, and the draw slots of their threads and those a reaction
+# fills (tauleap_cuda.draw_slots)
 COUNTERS = ("abc.batches", "abc.host_copies", "obs.weight_launches", "dist.gathers",
-            "dist.gather_bytes", "pf.loglik_launches", "pf.resample_launches")
+            "dist.gather_bytes", "pf.loglik_launches", "pf.resample_launches",
+            "k4.launches", "k4.thread_slots", "k4.reaction_slots")
 
 NULL_SCOPE = contextlib.nullcontext()
+# brackets an anchor takes its pair from
+ANCHOR_TRIES = 8
 
 
 class Span(NamedTuple):
@@ -86,11 +92,17 @@ class Span(NamedTuple):
 
 
 def _anchor():
-    """A ``(time.time_ns(), perf_counter_ns())`` pair, the second taken
-    around the first."""
-    p0 = time.perf_counter_ns()
-    wall = time.time_ns()
-    return wall, (p0 + time.perf_counter_ns()) // 2
+    """A ``(time.time_ns(), perf_counter_ns())`` pair, the second the middle
+    of two reads around the first: of ``ANCHOR_TRIES`` such brackets the
+    narrowest, since a preemption inside one widens it by a time slice."""
+    brackets = []
+    for _ in range(ANCHOR_TRIES):
+        p0 = time.perf_counter_ns()
+        wall = time.time_ns()
+        p1 = time.perf_counter_ns()
+        brackets.append((p1 - p0, wall, (p0 + p1) // 2))
+    _, wall, perf = min(brackets)
+    return wall, perf
 
 
 class Recording:
@@ -107,14 +119,14 @@ class Recording:
         self._names, self._starts, self._ends, self._parents, self._ids = [], [], [], [], []
         self._open = []
 
-    def _begin(self, name, ident):
+    def _begin(self, name, ident, start_ns):
         i = len(self._starts)
         self._names.append(name)
         self._parents.append(self._open[-1] if self._open else -1)
         self._ids.append(ident)
         self._ends.append(0)
         self._open.append(i)
-        self._starts.append(time.perf_counter_ns())
+        self._starts.append(start_ns)
         return i
 
     def _end(self, i):
@@ -138,6 +150,13 @@ class Recording:
                 "spans": [list(s) for s in self.spans]}
 
 
+# a span's twin: the ``user_annotation`` range ``torch.profiler.record_function``
+# opens, entered and left through the autograd binding it wraps, without the
+# operator dispatch around it
+_twin_enter = torch._C._autograd._record_function_with_args_enter
+_twin_exit = torch._C._autograd._record_function_with_args_exit
+
+
 class _Span:
     __slots__ = ("_rec", "_name", "_id", "_i", "_twin")
 
@@ -145,18 +164,19 @@ class _Span:
         self._rec, self._name, self._id = rec, name, ident
 
     def __enter__(self):
-        self._twin = None
-        if _autograd_profiler._is_profiler_enabled:
-            self._twin = torch.profiler.record_function(self._name)
-            self._twin.__enter__()
-        # inside its twin, so that the span times the program and not the range
-        self._i = self._rec._begin(self._name, self._id)
+        # the span's clock is read just outside its twin's range, on the side
+        # of each of the twin's reads with the least work between the two
+        # (about 2 us; inside the range 5-15 us): a preemption between them
+        # puts span and twin a time slice (about 4 ms) apart
+        start = time.perf_counter_ns()
+        self._twin = _twin_enter(self._name) if _autograd_profiler._is_profiler_enabled else None
+        self._i = self._rec._begin(self._name, self._id, start)
         return self
 
     def __exit__(self, *exc):
-        self._rec._end(self._i)
         if self._twin is not None:
-            self._twin.__exit__(*exc)
+            _twin_exit(self._twin)
+        self._rec._end(self._i)
         return False
 
 
