@@ -7,7 +7,8 @@ Phases, one or more lines each on stdout:
   2. build    nvcc builds epitpu_torch/csrc/tauleap.cu (sm_90a) and, in
               parallel, the generated functors' libraries of SIR, SEIR,
               K = 2 T and K = 8 T (their KernelSpec removed), K = 12, K = 20
-              and SIRS; seconds, registers, stack and spills of each;
+              and SIRS; seconds, registers, stack and spills of each, and
+              K4's Sir and Seir on a line of their own;
   3. kernel   every instantiation of the tau-leap kernel against its plain
               torch twin on the card, in both modes (the full trajectory
               with a theta row per lane; the final state with one theta row
@@ -398,9 +399,12 @@ def phase_build():
         path = hand.result()
         gen = {label: f.result() for label, f in gen.items()}
     wall = time.perf_counter() - t0
+    report = _ptxas_report(_build.BUILD_INFO.get("ptxas", ""))
     print(f"build: {_build.BUILD_INFO['seconds']:.2f} s -> {os.path.relpath(path, ROOT)}; "
-          f"registers/stack bytes/spill-store bytes: "
-          f"{_ptxas_report(_build.BUILD_INFO.get('ptxas', ''))}", flush=True)
+          f"registers/stack bytes/spill-store bytes: {report}", flush=True)
+    k4 = [part for part in report.split(", ") if part.split(" ")[0] in ("Sir", "Seir")]
+    print(f"build: K4's Sir and Seir registers/stack bytes/spill-store bytes: {', '.join(k4)}",
+          flush=True)
     parts = []
     for label, p in gen.items():
         info = _build.GENERATED_INFO[str(p)]
@@ -1108,7 +1112,8 @@ def phase_seir_cell():
         sim(model, x0, theta, seed, off, 1, 20, True, n)
     counts = {name: rec.counters.get(name) for name in
               ("k4.launches", "k4.thread_slots", "k4.reaction_slots")}
-    check(counts == {"k4.launches": 1, "k4.thread_slots": 4 * particles,
+    # 10 lanes of 3 threads a warp: the slots of the warps that hold lanes
+    check(counts == {"k4.launches": 1, "k4.thread_slots": -(-particles // 10) * 32,
                      "k4.reaction_slots": 3 * particles},
           f"seir cell: one Seir launch counted {counts}")
     bound_ms, by, ops, nbytes = bound(model, particles, 1, chains, True, work)

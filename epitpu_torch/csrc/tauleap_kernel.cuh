@@ -44,15 +44,25 @@
 // too few lanes to hide that chain behind other warps, so the design shortens
 // the chain itself:
 //
-//  (a) A lane is served by a group of G threads, G = the next power of two
-//      >= R, at most a warp (SIR 2, SEIR 4 with one idle, K groups: 2, 4, 8,
-//      8, 16 x4, 32 from K = 9).  Every thread holds the lane's whole state;
-//      thread t computes only reactions t, t + G, ... (one reaction while
-//      R <= 32), with only the theta entries they read, and only their draws.
-//      The R counts are exchanged with __shfl_sync inside the group (count q
-//      from thread q % G, its element q / G) and every thread applies all R
-//      updates in reaction order, so the copies of the state stay identical.
-//      This divides the draw part of the chain by min(R, 32).
+//  (a) A lane of R <= 32 reactions takes exactly R consecutive threads of a
+//      warp, its group (G = R), and a warp holds L = floor(32 / R) lanes:
+//      thread t of warp w serves lane w L + t / G and reaction t % G, and
+//      the warp's last 32 - L G threads belong to no lane (SIR 16 lanes of
+//      2; SEIR 10 lanes of 3 and 2 threads over; K groups 2K threads, one
+//      lane a warp from K = 9).  A lane of R > 32 takes a whole warp
+//      (G = 32), thread t drawing reactions t, t + 32, ....  Every thread
+//      holds the lane's whole state and computes only its own reactions,
+//      with only the theta entries they read, and only their draws.  The R
+//      counts are exchanged with __shfl_sync inside the group, count q from
+//      the group's thread q % G, its element q / G.  A group of a power of
+//      two is a shuffle segment of width G; any other names its source lane
+//      in the warp, since a width must be a power of two (naming it for
+//      every G cost Sir 6 registers and K = 8 another 8, nvcc -v).  Every
+//      thread applies all R updates in reaction order, so the copies of the
+//      state stay identical; thread q writes the compartments c with
+//      c % G == q.  This divides the draw part of the chain by min(R, 32).
+//      A power of two R leaves no thread over; any other leaves fewer than
+//      R a warp (R = 3, 6 and 10: 2 of 32).
 //  (b) The CDF loop stops at the first term with u < cdf.  This is exact:
 //      cdf is a running sum of terms clamped at >= 0, so it never decreases
 //      and every later (u >= cdf) is false (a NaN cdf stays NaN and compares
@@ -69,11 +79,11 @@
 //      Box-Muller would save, 4-8 % each, before an mbarrier wait on every
 //      substep of a chain whose length is the limit.
 //  (e) The launch shape comes from the caller
-//      (epitpu_torch/ops/tauleap_cuda.py:launch_geometry): fewer threads per
-//      block when a launch would fill fewer blocks than the card has SMs.
-//      Threads of a group past the last lane, and padding threads of a group
-//      (no reaction left), run every loop and every shuffle with their
-//      group's mask, but never draw and never write.
+//      (epitpu_torch/ops/tauleap_cuda.py:launch_geometry): the warps that
+//      hold lanes, in fewer threads per block when a launch would fill
+//      fewer blocks than the card has SMs.  Threads of no lane (a warp's
+//      last 32 - L G, and every group past the last lane) return at once:
+//      they never draw, write or shuffle, and no shuffle's mask names them.
 //  (f) final_only writes only the state at t_max into [B, C] (the particle
 //      filter's step), and lanes_per_theta lets consecutive lanes share one
 //      theta row (lane b reads row b / lanes_per_theta), so the filter
@@ -100,16 +110,15 @@ constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
 constexpr int kSmallK = 20;
 constexpr float kSmallMeanMax = 8.0f;
 constexpr int kMaxThreads = 256;  // per block; tauleap_cuda.py:MAX_THREADS
-constexpr int kMaxGroup = 32;     // threads a lane, one warp; tauleap_cuda.py:MAX_GROUP
+constexpr int kWarp = 32;  // threads a warp, and at most a lane's; tauleap_cuda.py:WARP
 
 struct Words {
   uint32_t x, y, z, w;
 };
 
+// threads a lane: one a reaction, at most a warp; (a)
 __host__ __device__ constexpr int group_size(int reactions) {
-  int g = 1;
-  while (g < reactions && g < kMaxGroup) g *= 2;
-  return g;
+  return reactions < kWarp ? reactions : kWarp;
 }
 
 __device__ __forceinline__ Words philox(Words c, uint32_t k0, uint32_t k1) {
@@ -207,21 +216,24 @@ traj_kernel(const float* __restrict__ x0, const float* __restrict__ theta,
             uint32_t k0, uint32_t k1, uint32_t offset, uint32_t lane_c0, uint32_t lane_n_local,
             uint32_t lane_n_total, uint32_t lane_p0, int t_max, int n_sub, float dt,
             int final_only) {
-  constexpr int C = M::kC, R = M::kR, G = group_size(R);
+  constexpr int C = M::kC, R = M::kR, G = group_size(R), L = kWarp / G;
   constexpr int P = (R + G - 1) / G;  // reactions a thread draws: r, r + G, ...
   constexpr unsigned kGroupMask = G == 32 ? 0xFFFFFFFFu : (1u << G) - 1u;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = static_cast<int>(tid / G);
-  const int r = static_cast<int>(tid % G);
-  const bool live = b < lanes;
+  // a block is whole warps, so no group spans two
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
+  const int t_warp = static_cast<int>(threadIdx.x % kWarp);
+  const int slot = t_warp / G;  // the warp's lane this thread serves; L for none
+  const int r = t_warp % G;
+  if (slot >= L || warp * L + slot >= lanes) return;  // (e)
+  const int b = static_cast<int>(warp * L + slot);
   // the counter's lane word: b's index in the unsharded launch
   const uint32_t lane = (lane_c0 + (uint32_t)b / lane_n_local) * lane_n_total + lane_p0 +
                         (uint32_t)b % lane_n_local;
-  // the group's lanes of the warp; a block is whole warps, so no group spans two
-  const unsigned mask = kGroupMask << (threadIdx.x & 31u & ~(unsigned)(G - 1));
+  const int base = G * slot;  // the group's first thread in the warp
+  const unsigned mask = kGroupMask << base;
   float x[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) x[c] = live ? x0[(size_t)C * b + c] : 0.0f;
+  for (int c = 0; c < C; ++c) x[c] = x0[(size_t)C * b + c];
   float coef[P][M::kCoef];
   int src[P];
 #pragma unroll
@@ -229,11 +241,11 @@ traj_kernel(const float* __restrict__ x0, const float* __restrict__ theta,
     const int q = r + p * G;
 #pragma unroll
     for (int j = 0; j < M::kCoef; ++j) coef[p][j] = 0.0f;
-    if (live && q < R) M::load(theta + (size_t)(b / lanes_per_theta) * theta_stride, q, coef[p]);
+    if (q < R) M::load(theta + (size_t)(b / lanes_per_theta) * theta_stride, q, coef[p]);
     src[p] = M::src(q < R ? q : 0);
   }
   float* o = out + (size_t)b * (final_only ? 1 : t_max + 1) * C;
-  if (live && (!final_only || t_max == 0)) store<C, G>(o, x, r);
+  if (!final_only || t_max == 0) store<C, G>(o, x, r);
   uint32_t step = 0;
   for (int t = 1; t <= t_max; ++t) {
     for (int j = 0; j < n_sub; ++j, ++step) {
@@ -242,7 +254,7 @@ traj_kernel(const float* __restrict__ x0, const float* __restrict__ theta,
       for (int p = 0; p < P; ++p) {
         const int q = r + p * G;
         ev[p] = 0.0f;
-        if (live && q < R) {
+        if (q < R) {
           const float n = pick(x, src[p]);
           const Words w = philox(Words{lane, offset, step, (uint32_t)q}, k0, k1);
           ev[p] = binomial(w, n, fire_probability(M::rate(x, coef[p], q), n, dt));
@@ -250,10 +262,13 @@ traj_kernel(const float* __restrict__ x0, const float* __restrict__ theta,
       }
       float e[R];
 #pragma unroll
-      for (int q = 0; q < R; ++q) e[q] = __shfl_sync(mask, ev[q / G], q % G, G);
+      for (int q = 0; q < R; ++q) {
+        if constexpr ((G & (G - 1)) == 0) e[q] = __shfl_sync(mask, ev[q / G], q % G, G);
+        else e[q] = __shfl_sync(mask, ev[q / G], base + q % G);
+      }
       M::apply(x, e);
     }
-    if (live && (!final_only || t == t_max)) store<C, G>(o + (final_only ? 0 : C * t), x, r);
+    if (!final_only || t == t_max) store<C, G>(o + (final_only ? 0 : C * t), x, r);
   }
 }
 
@@ -272,9 +287,10 @@ struct Launch {
 
 template <class M>
 int launch(const Launch& l) {
-  constexpr int G = group_size(M::kR);
-  const long long need = (long long)l.lanes * G;
-  // the shape must be the one launch_geometry computes for this instantiation
+  constexpr int G = group_size(M::kR), L = kWarp / G;
+  // the threads of the warps that hold lanes, L lanes a warp: the shape must
+  // be the one launch_geometry computes for this instantiation
+  const long long need = ((long long)l.lanes + L - 1) / L * kWarp;
   if (l.group != G || l.threads < 32 || l.threads > kMaxThreads || l.threads % 32 != 0 ||
       l.blocks < 1 || (long long)l.blocks * l.threads < need ||
       (long long)(l.blocks - 1) * l.threads >= need || l.lanes_per_theta < 1) {

@@ -56,7 +56,7 @@ FAMILIES = ("sir", "seir", "sir_subgroups")
 KERNEL_PATHS = FAMILIES + ("generated",)  # the _build.LAUNCHES keys of K4's launches
 MAX_GROUPS = 8  # csrc/tauleap.cu:kMaxGroups
 MAX_THREADS = 256  # per block, csrc/tauleap_kernel.cuh:kMaxThreads
-MAX_GROUP = 32  # threads a lane, csrc/tauleap_kernel.cuh:kMaxGroup
+WARP = 32  # threads a warp, and at most a lane's; csrc/tauleap_kernel.cuh:kWarp
 
 
 def launches():
@@ -78,16 +78,24 @@ def route(model: CompartmentModel) -> str:
     return "generated" if model.sources_unique else "plain"
 
 
+def _warps(lanes: int, group: int) -> int:
+    """The warps that hold ``lanes`` lanes of ``group`` threads, ``WARP //
+    group`` lanes a warp."""
+    return -(-int(lanes) // (WARP // group))
+
+
 def launch_geometry(reactions: int, lanes: int, sms: int = 132):
     """``(group, threads, blocks)`` of one launch of a model with
     ``reactions`` reactions (``model.num_reactions``): ``group`` threads per
-    lane (the next power of two >= ``reactions``, at most ``MAX_GROUP``; a
-    thread of a larger model draws reactions t, t + 32, ...), ``threads`` per
-    block (256, or fewer when 256 would give fewer blocks than the card's
-    ``sms`` multiprocessors, down to one warp), and the blocks that cover
-    ``lanes x group`` threads with no empty block."""
-    group = min(1 << (int(reactions) - 1).bit_length(), MAX_GROUP)
-    need = int(lanes) * group
+    lane (one a reaction, at most ``WARP``; a thread of a larger model
+    draws reactions t, t + 32, ...), ``WARP // group`` lanes a warp and the
+    warp's other threads idle, ``threads`` per block (256, or fewer when 256
+    would give fewer blocks than the card's ``sms`` multiprocessors, down to
+    one warp), and the blocks that cover the warps holding ``lanes`` lanes
+    with no empty block.  For a power of two ``group`` that is ``lanes x
+    group`` threads."""
+    group = min(int(reactions), WARP)
+    need = _warps(lanes, group) * WARP
     threads = 32
     for t in (MAX_THREADS, 128, 64):
         if -(-need // t) >= sms:
@@ -99,11 +107,11 @@ def launch_geometry(reactions: int, lanes: int, sms: int = 132):
 def draw_slots(reactions: int, lanes: int, group: int):
     """``(thread slots, reaction slots)`` of one launch of ``lanes`` lanes
     in groups of ``group`` threads (``launch_geometry``): a thread draws in
-    passes of its lane's reactions t, t + group, ..., so each of a lane's
-    ``group`` threads holds one slot a pass, and ``reactions`` of those
-    slots draw."""
+    passes of its lane's reactions t, t + group, ..., so each thread of a
+    warp that holds lanes has one slot a pass, and ``reactions`` slots of
+    each lane draw."""
     passes = -(-reactions // group)
-    return lanes * group * passes, lanes * reactions
+    return _warps(lanes, group) * WARP * passes, lanes * reactions
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,14 +9,18 @@ of a copy of the two sources (the shipped files are not touched; an edit
 whose anchor text is not found once in the two raises), checks
 that every variant gives the shipped kernel's output bit for bit (they
 compute the same function), and times them with CUDA events, in turns
-(shipped, variants, variants reversed, shipped), at four cases: SIR and
+(shipped, variants, variants reversed, shipped), at six cases: SIR and
 8-group SIR (transposed), each at the filter shape (32,768 lanes, 20
 substeps, final state, 16 lanes per theta row) and the ABC shape (512 lanes
-x 14 units x 20 substeps, full trajectory), on chip_smoke.py's phase-3
-inputs.  Variants:
+x 14 units x 20 substeps, full trajectory), and SEIR at the SEIR cell's
+filter shape (65,536 lanes, 32 a theta row) and the ABC shape, on
+chip_smoke.py's phase-3 inputs.  Variants:
 
   one_thread       one thread per lane running all R draws in turn, the
                    rest of the design kept: part (a), the group split, undone;
+  power_of_two_group  a lane's group the next power of two >= R threads,
+                   32 / G lanes a warp: part (a)'s packing undone (the same
+                   launch for a power-of-two R; SEIR's lanes in groups of 4);
   no_early_exit    the inverse-CDF loop runs all of its terms, part (b);
   philox_ahead     the Philox words of substep j + 1 computed at the top of
                    substep j, the prefetch that part (d) measured and left out;
@@ -54,7 +58,7 @@ import time
 import torch
 
 from chip_smoke import _lane_inputs, cuda_ms
-from epitpu_torch.models import sir_model, sir_subgroups_model
+from epitpu_torch.models import seir_model, sir_model, sir_subgroups_model
 from epitpu_torch.ops import _build, tauleap_cuda
 from epitpu_torch.rng import seed_key
 
@@ -62,7 +66,7 @@ EARLY_EXIT = ("      if (!(u >= cdf)) break;  // (b): no later term can count\n"
               "      x += 1.0f;\n")
 LOOP_TOP = "  uint32_t step = 0;\n  for (int t = 1; t <= t_max; ++t) {\n"
 # the draw of a thread's reaction q (one reaction a thread at SIR and K = 8)
-DRAW_TOP = "        ev[p] = 0.0f;\n        if (live && q < R) {\n"
+DRAW_TOP = "        ev[p] = 0.0f;\n        if (q < R) {\n"
 DRAW_WORDS = ("          const Words w = philox(Words{lane, offset, step, (uint32_t)q}, "
               "k0, k1);\n")
 DRAW_END = "        }\n      }\n      float e[R];\n"
@@ -73,7 +77,8 @@ DIVIDE_GUARD = ("__device__ __forceinline__ float div_pos(float a, float b) {\n"
                 "  return a == 0.0f ? a : a / b;\n}\n\n")
 KERNEL_START = "template <class M>\n__global__ void __launch_bounds__(kMaxThreads)\ntraj_kernel("
 KERNEL_END = "struct Launch {"
-GROUP = "  constexpr int G = group_size(M::kR);\n  const long long need"
+GROUP = "  constexpr int G = group_size(M::kR), L = kWarp / G;\n  // the threads of the warps"
+GROUP_SIZE = "  return reactions < kWarp ? reactions : kWarp;\n"
 # one thread per lane: every reaction's theta entries loaded once, then per
 # substep all R draws from the pre-substep state, in reaction order
 ONE_THREAD_KERNEL = """template <class M>
@@ -118,7 +123,9 @@ traj_kernel(const float* __restrict__ x0, const float* __restrict__ theta,
 
 EDITS = {
     "one_thread": [(None, ONE_THREAD_KERNEL),
-                   (GROUP, "  constexpr int G = 1;\n  const long long need")],
+                   (GROUP, "  constexpr int G = 1, L = kWarp / G;\n  // the threads of the warps")],
+    "power_of_two_group": [(GROUP_SIZE, "  int g = 1;\n  while (g < reactions && g < kWarp) "
+                                        "g *= 2;\n  return g;\n")],
     "no_early_exit": [(EARLY_EXIT, "      x += (u >= cdf) ? 1.0f : 0.0f;\n")],
     "philox_ahead": [
         (LOOP_TOP, "  uint32_t step = 0;\n  Words w = philox(Words{lane, offset, 0u, "
@@ -141,8 +148,12 @@ EDITS = {
     "cheap_normal": [(BOX_MULLER, "  return (u1 + u2 - 1.0f) * 2.449f;\n")],
 }
 TIMING_ONLY = ("philox_2_rounds", "cheap_normal")  # their output differs by design
+# threads a lane of R reactions in the variants that launch another group
+GROUPS = {"one_thread": lambda r: 1,
+          "power_of_two_group": lambda r: min(1 << (r - 1).bit_length(), 32)}
 SMS = 132
 FILTER_LANES, ABC_LANES, PER_THETA = 32768, 512, 16
+SEIR_LANES, SEIR_PER_THETA = 65536, 32  # the SEIR cell's 2,048 chains x 32 particles
 SCAN_WARPS_PER_SM = (1, 2, 4, 8, 16)
 SEED = 20261016
 
@@ -173,7 +184,8 @@ def variant_sources(name):
 
 
 def build_variants():
-    """nvcc for every variant at once; {name: (ctypes library, group or None)}."""
+    """nvcc for every variant at once; {name: (ctypes library, its threads a
+    lane of R reactions, or None for the model's)}."""
     procs = {}
     for name in EDITS:
         d = _build.BUILD_DIR / "ablation" / name
@@ -189,7 +201,7 @@ def build_variants():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{err}")
         lib = _build.bind(ctypes.CDLL(str(d / "lib.so")), "epi_traj")
-        libs[name] = (lib, 1 if name == "one_thread" else None)
+        libs[name] = (lib, GROUPS.get(name))
     return libs
 
 
@@ -201,7 +213,8 @@ def launcher(lib, model, x0, theta, t_max, final_only, per_theta, group=None, th
     family, k, transpose = tauleap_cuda.hand_args(model)
     g, t, blocks = tauleap_cuda.launch_geometry(group or model.num_reactions, b, SMS)
     if threads is not None:
-        t, blocks = threads, -(-b * g // threads)
+        need = -(-b // (32 // g)) * 32  # the threads of the warps that hold lanes
+        t, blocks = threads, -(-need // threads)
     out = torch.empty((b, c) if final_only else (b, t_max + 1, c), device=x0.device)
     k0, k1 = seed_key(SEED)
 
@@ -230,14 +243,19 @@ def main():
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
     gen = torch.Generator().manual_seed(SEED)
     cases = {}
-    for label, model in (("sir", sir_model()), ("k8", sir_subgroups_model(8))):
-        x0, th, _ = _lane_inputs(model, FILTER_LANES, gen)
-        cases[f"{label} filter"] = (model, x0, th[::PER_THETA].contiguous(), 1, True, PER_THETA)
+    for label, model, lanes, per_theta in (
+            ("sir", sir_model(), FILTER_LANES, PER_THETA),
+            ("k8", sir_subgroups_model(8), FILTER_LANES, PER_THETA),
+            ("seir", seir_model(), SEIR_LANES, SEIR_PER_THETA)):
+        x0, th, _ = _lane_inputs(model, lanes, gen)
+        cases[f"{label} filter"] = (model, x0, th[::per_theta].contiguous(), 1, True, per_theta)
         x0, th, _ = _lane_inputs(model, ABC_LANES, gen)
         cases[f"{label} abc"] = (model, x0, th, 14, False, 1)
     result = {"device": smi, "cases": {}, "scan": []}
     for case, args in cases.items():
-        runs = {name: launcher(lib, *args, group=g) for name, (lib, g) in libs.items()}
+        reactions = args[0].num_reactions
+        runs = {name: launcher(lib, *args, group=g and g(reactions))
+                for name, (lib, g) in libs.items()}
         runs["threads_256"] = launcher(shipped, *args, threads=256)
         model, x0, theta, t_max, final_only, per_theta = args
         other_mode = "full_trajectory" if final_only else "final_only"

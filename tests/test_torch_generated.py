@@ -319,18 +319,19 @@ def test_generated_text_is_stable():
 
 @pytest.mark.parametrize("k", [12, 20])
 def test_launch_geometry_past_a_warp(k):
-    """Past 32 reactions a lane keeps one warp, and thread t draws reactions
-    t, t + 32, ...: every (lane, reaction) exactly once."""
+    """Past 16 reactions a lane keeps one warp (its R threads, at most 32,
+    the warp's other threads owning no lane), and past 32 thread t draws
+    reactions t, t + 32, ...: every (lane, reaction) exactly once."""
     r = 2 * k
     for lanes in (1, 31, 33, 513, 32768):
         g, t, nb = tauleap_cuda.launch_geometry(r, lanes)
-        assert g == min(32, 1 << (r - 1).bit_length())
+        assert g == min(32, r) and (nb - 1) * t < lanes * 32 <= nb * t
         tid = np.arange(nb * t, dtype=np.int64)
-        lane, slot = tid // g, tid % g
+        lane, slot = tid // 32, tid % 32
         hits = np.zeros(lanes * r, np.int64)
         for p in range(-(-r // g)):
             q = slot + p * g
-            live = (lane < lanes) & (q < r)
+            live = (lane < lanes) & (slot < g) & (q < r)
             hits += np.bincount(lane[live] * r + q[live], minlength=lanes * r)
         assert (hits == 1).all()
 

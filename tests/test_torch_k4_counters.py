@@ -1,7 +1,8 @@
 """The tau-leap kernel's (K4's) profiling counters: ``k4.launches`` one a
 launch of any family or generated functor, ``k4.thread_slots`` and
 ``k4.reaction_slots`` the draw slots of a launch's threads and those its
-reactions fill (``tauleap_cuda.draw_slots`` over ``launch_geometry``); the
+reactions fill (``tauleap_cuda.draw_slots`` over ``launch_geometry``: the
+threads of the warps that hold lanes, floor(32 / R) lanes a warp); the
 CPU's twin and the plain route count none.  The card's tests run with
 ``--noconftest``: this file imports neither JAX nor epitpu."""
 import pytest
@@ -15,22 +16,30 @@ K4_COUNTERS = ("k4.launches", "k4.thread_slots", "k4.reaction_slots")
 LANES = 2048 * 32  # seir_binomial.chains2048: 2,048 chains x 32 particles
 
 
-@pytest.mark.parametrize("reactions,group,passes", [(2, 2, 1), (3, 4, 1), (5, 8, 1),
-                                                    (33, 32, 2)])
+@pytest.mark.parametrize("reactions,group,passes", [(2, 2, 1), (3, 3, 1), (5, 5, 1), (6, 6, 1),
+                                                    (7, 7, 1), (10, 10, 1), (33, 32, 2)])
 def test_draw_slots_follow_the_launch_geometry(reactions, group, passes):
-    """A lane's group is the next power of two at or above its reactions, at
-    most a warp; past a warp a thread draws in passes, a slot each."""
+    """A lane's group is one thread a reaction, at most a warp, and a warp
+    holds floor(32 / group) lanes; past a warp a thread draws in passes, a
+    slot each.  A launch's thread slots are those of the warps that hold
+    lanes: its idle slots are the last warp's empty lane places, the
+    threads that no lane owns, and a lane's slots past its reactions."""
+    per_warp = 32 // group
     for lanes in (1, 33, LANES):
         g, _, _ = tauleap_cuda.launch_geometry(reactions, lanes)
         assert g == group
         threads, drawn = tauleap_cuda.draw_slots(reactions, lanes, g)
-        assert threads == lanes * group * passes and drawn == lanes * reactions
-        assert drawn <= threads < drawn + lanes * group
+        warps = -(-lanes // per_warp)
+        assert threads == warps * 32 * passes and drawn == lanes * reactions
+        empty = warps * per_warp - lanes
+        assert 0 <= empty < per_warp
+        assert threads - drawn == (empty * group * passes + warps * (32 - per_warp * group) * passes
+                                   + lanes * (group * passes - reactions))
 
 
-def test_a_seir_lane_leaves_one_thread_in_four_idle():
+def test_a_seir_launch_packs_ten_lanes_a_warp():
     g, _, _ = tauleap_cuda.launch_geometry(seir_model().num_reactions, LANES)
-    assert tauleap_cuda.draw_slots(3, LANES, g) == (262144, 196608)
+    assert g == 3 and tauleap_cuda.draw_slots(3, LANES, g) == (209728, 196608)
     g, _, _ = tauleap_cuda.launch_geometry(sir_model().num_reactions, LANES)
     threads, drawn = tauleap_cuda.draw_slots(2, LANES, g)
     assert threads == drawn
@@ -77,7 +86,7 @@ def test_a_seir_filter_step_counts_its_launch_and_slots_on_card():
     counters, launched = _filter_step(seir_model(), (4.0, 1.0, 1.0))
     assert launched == 1
     assert {k: counters.get(k) for k in K4_COUNTERS} == {
-        "k4.launches": 1, "k4.thread_slots": 262144, "k4.reaction_slots": 196608}
+        "k4.launches": 1, "k4.thread_slots": 209728, "k4.reaction_slots": 196608}
 
 
 @pytest.mark.cuda

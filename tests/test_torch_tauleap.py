@@ -343,34 +343,60 @@ def test_lanes_reads_one_theta_row_per_chain(theta_shape, rows, per_row):
     assert torch.equal(th_rows.repeat_interleave(lpt, dim=0), want)
 
 
+def _power_of_two_geometry(reactions, lanes, sms=132):
+    """The launch shape of lanes in groups of the next power of two >= R
+    threads: the packed map's own shape at every power-of-two R."""
+    g = min(1 << (reactions - 1).bit_length(), 32)
+    t = next((t for t in (256, 128, 64) if -(-lanes * g // t) >= sms), 32)
+    return g, t, max(1, -(-lanes * g // t))
+
+
+def _thread_map(group, threads, blocks):
+    """The kernel's map (csrc/tauleap_kernel.cuh, part (a)) of every launched
+    thread: its warp, its lane, its first reaction and whether it owns a
+    lane at all (the warp's first 32 // group x group threads)."""
+    tid = np.arange(blocks * threads, dtype=np.int64)
+    warp, t = tid // 32, tid % 32
+    per_warp = 32 // group
+    return warp, warp * per_warp + t // group, t % group, t // group < per_warp
+
+
 @pytest.mark.parametrize("family,k", [("sir", 1), ("seir", 1)]
-                         + [("sir_subgroups", k) for k in range(1, 9)])
+                         + [("sir_subgroups", k) for k in range(1, 9)]
+                         + [("reactions", r) for r in (5, 7)])
 def test_launch_geometry_covers_every_lane_once(family, k):
-    """Every (lane, reaction) has exactly one thread, a lane's group lies in
-    one warp, no block is empty, and blocks shrink only while a launch
-    would fill fewer blocks than the card has SMs."""
-    model = {"sir": sir_model, "seir": seir_model,
-             "sir_subgroups": lambda: sir_subgroups_model(k)}[family]()
-    r = model.num_reactions
-    want_g = {1: 2, 2: 2, 3: 4, 4: 4, 6: 8, 8: 8, 10: 16, 12: 16, 14: 16, 16: 16}[r]
-    for lanes in list(range(1, 1001)) + [30, 200, 300, 512, 32768, 524288]:
+    """Every (lane, reaction) has exactly one thread, a lane's R threads lie
+    in one warp, a warp holds floor(32 / R) lanes, the warp's other threads
+    own no lane, no block is empty, blocks shrink only while a launch would
+    fill fewer blocks than the card has SMs, and a power-of-two R keeps the
+    shape of a group of the next power of two."""
+    if family == "reactions":
+        r = k
+    else:
+        r = {"sir": sir_model, "seir": seir_model,
+             "sir_subgroups": lambda: sir_subgroups_model(k)}[family]().num_reactions
+    per_warp = 32 // r
+    for lanes in list(range(1, 1001)) + [30, 200, 300, 512, 32768, 65536, 524288]:
         g, t, nb = tauleap_cuda.launch_geometry(r, lanes)
-        assert g == want_g and t in (32, 64, 128, 256) and 32 % g == 0
-        need = lanes * g
-        assert (nb - 1) * t < need <= nb * t
+        assert g == r and t in (32, 64, 128, 256)
+        warps = -(-lanes // per_warp)
+        assert (nb - 1) * t < warps * 32 <= nb * t
         if t > 32:
             assert nb >= 132
         if t < 256:
-            assert -(-need // (2 * t)) < 132
-        tid = np.arange(nb * t, dtype=np.int64)
-        lane, slot = tid // g, tid % g
-        live = (lane < lanes) & (slot < r)
+            assert -(-warps * 32 // (2 * t)) < 132
+        if r & (r - 1) == 0:
+            assert (g, t, nb) == _power_of_two_geometry(r, lanes)
+        warp, lane, slot, owned = _thread_map(g, t, nb)
+        live = owned & (lane < lanes)
         counts = np.bincount(lane[live] * r + slot[live], minlength=lanes * r)
         assert counts.shape == (lanes * r,) and (counts == 1).all()
-        first = lane * g
-        assert ((first // 32) == ((first + g - 1) // 32)).all()
+        assert (warp[live] == lane[live] // per_warp).all()
+        assert (np.bincount(warp[owned], minlength=nb * t // 32) == per_warp * r).all()
+        assert (np.bincount(warp[~owned], minlength=nb * t // 32) == 32 - per_warp * r).all()
     assert tauleap_cuda.launch_geometry(2, 512) == (2, 32, 32)
     assert tauleap_cuda.launch_geometry(2, 32768) == (2, 256, 256)
+    assert tauleap_cuda.launch_geometry(3, 65536) == (3, 256, 820)
 
 
 # ---- the filter path: the chains must not move -----------------------------
